@@ -3,23 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (mode hpcsimd, l=31, k=5, d=0.01, u32 hashes,
-a [32, 1 Mbp] xcode batch made from a numpy seed) through its user entry
-points, after building the CUDA kernels from ``rust_seq2kminmers_torch/
-csrc``.  In order, and any failure raises (exit code != 0):
+Drives the port's three paths through its user entry points, on [32, 1 Mbp]
+xcode batches made from a numpy seed, after building the CUDA kernels from
+``rust_seq2kminmers_torch/csrc``:
+
+  - the main path: mode hpcsimd, l=31, k=5, d=0.01, u32 hashes; the fused
+    route K1 -> K2 -> K3;
+  - the general path: hpcsimd, nthash2, l=301, k=5, d=0.01; the route for
+    l = 1 or l > 255, K4 (HPC and minimizer compactions) -> K3;
+  - the u64 path: regular, hash_width=64, l=31, k=5, d=0.01; K1 -> K2 -> K3
+    at width 64.
+
+In order, and any failure raises (exit code != 0):
 
   1. needs a GPU; prints the card's name and power limit;
   2. builds the kernel library; prints the build time and ptxas's
      register / shared-memory / spill lines;
-  3. checks each kernel (K1 fused scan, K2 slot compaction, K3 assembly)
-     bit for bit against its plain PyTorch version at the main-path shapes;
-  4. reproduces the 15 u32 golden hashes (tests/data/ecoli.genome.100k.fa,
-     regular, l=10, k=5, d=0.0001) on the card;
-  5. with the launch counters at zero, runs the batch through
-     ``kminmers_batch``; every kernel must have launched, and all 12
-     KminmerBatch fields must equal the plain pipeline's on the card;
-  6. times the main path and each kernel with CUDA events, beside the
-     plain versions.
+  3. checks each kernel bit for bit against its plain PyTorch version at
+     the paths' shapes: K1 fused scan (u32, and widths 16/64 and nthash2),
+     K2 slot compaction, K3 assembly (xorshift, murmur and identity mixes),
+     K4 masked compaction (the dense packed HPC compaction, m = L, and a
+     3-column minimizer compaction at a 1% mask);
+  4. reproduces the 15 u32 and 20 u64 golden hashes
+     (tests/data/ecoli.genome.100k.fa, regular, l=10, k=5, d=0.0001) on
+     the card;
+  5. runs each path through ``kminmers_batch`` with the launch counters
+     set to zero just before and read just after: each path must launch
+     its kernels (and the general path never K1), and all 12 KminmerBatch
+     fields must equal the plain pipeline's on the card;
+  6. times each path and each kernel with CUDA events, beside the plain
+     versions.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -46,6 +59,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "rust_seq2kminmers_torch/csrc/assemble.cu",
         "rust_seq2kminmers_tpu/ops/pallas/assemble_kernel.py:71",
     ),
+    "masked_compact": (
+        "rust_seq2kminmers_torch/csrc/masked_compact.cu",
+        "rust_seq2kminmers_tpu/ops/pallas/compact_kernel.py:125",
+    ),
 }
 
 
@@ -65,8 +82,9 @@ def main():
 
     from rust_seq2kminmers_torch import kminmers_list
     from rust_seq2kminmers_torch.api import kminmers_batch
-    from rust_seq2kminmers_torch.constants import with_keep_bits
-    from rust_seq2kminmers_torch.ops.assemble import assemble_kminmers
+    from rust_seq2kminmers_torch.constants import CODE_PAD, with_keep_bits
+    from rust_seq2kminmers_torch.ops.assemble import assemble_plain
+    from rust_seq2kminmers_torch.ops.compact import compact
     from rust_seq2kminmers_torch.ops.cuda import build
     from rust_seq2kminmers_torch.ops.cuda.assemble_kernel import (
         assemble_kminmers_cuda,
@@ -77,10 +95,12 @@ def main():
         fused_scan_plain,
         valid_slots,
     )
+    from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
     from rust_seq2kminmers_torch.ops.cuda.slot_compact import (
         slot_compact,
         slot_compact_plain,
     )
+    from rust_seq2kminmers_torch.ops.hpc import hpc_keep_mask
     from rust_seq2kminmers_torch.ops.pipeline import (
         PipelineSpec,
         kminmer_pipeline,
@@ -103,17 +123,23 @@ def main():
     lib = build.library()
     how = "built" if lib.built else "loaded an earlier build"
     log(f"build: {how} in {lib.seconds:.2f} s -> {lib.path.relative_to(REPO)}")
-    ptxas = [ln for ln in lib.log.splitlines() if "ptxas" in ln or "spill" in ln]
+    ptxas = [ln for ln in lib.log.splitlines()
+             if "ptxas" in ln or "spill" in ln or ln.startswith("==")]
     check(ptxas, "no ptxas lines in the nvcc log")
     for ln in ptxas:
         log(f"  {ln}")
 
-    # The main-path batch: random ACGT with keep bits, full-length reads,
-    # two distinct batches so that consecutive timed steps miss the L2.
+    # The batches: random ACGT with keep bits, full-length reads, two
+    # distinct batches so that consecutive timed steps miss the L2.
     spec = PipelineSpec(
         l=31, k=5, density=0.01, mode="hpcsimd",
         max_minimizers=int(L * 0.02) + 256,
     )
+    general_spec = PipelineSpec(
+        l=301, k=5, density=0.01, mode="hpcsimd", variant="nthash2"
+    )
+    u64_spec = PipelineSpec(l=31, k=5, density=0.01, mode="regular", hash_width=64)
+    check(spec.fused and u64_spec.fused and not general_spec.fused, "routes")
     rng = np.random.default_rng(SEED)
     pool = [
         torch.from_numpy(with_keep_bits(rng.integers(0, 4, (B, L), dtype=np.uint8)))
@@ -127,63 +153,141 @@ def main():
     cap = spec.cap_per_tile(TILE)
     scan_args = (spec.l, spec.bound, spec.strict_threshold, spec.is_hpc, False)
 
-    # 3. each kernel against its plain version, at the main-path shapes
+    # 3. each kernel against its plain version, at the paths' shapes
     def max_abs_err(got, want):
         return max(
             float((g.to(torch.float64) - w.to(torch.float64)).abs().max())
             for g, w in zip(got, want)
         )
 
+    def flat(rows):  # (start, end, hash) with a (hi, lo) hash flattened
+        return [*rows[:2], *(rows[2] if isinstance(rows[2], tuple) else rows[2:])]
+
+    errs = {}
+
+    def record(name, what, err):
+        log(f"{name} [{what}]: kernel vs plain max_abs_err={err} "
+            "(tolerance 0: bit-exact)")
+        check(err == 0, f"{name} [{what}] kernel differs from its plain version")
+        errs[name] = max(errs.get(name, 0.0), err)
+
     k1 = fused_minimizer_scan(codes, lengths, limit, *scan_args, TILE, cap)
     k1p = fused_scan_plain(codes, lengths, limit, *scan_args, TILE, cap)
-    k1_cmp = [valid_slots(t, k1[3]) for t in k1[:3]] + [k1[3]]
-    errs = {"fused_scan": max_abs_err(k1_cmp, k1p)}
-    kept = k1[3][:, :, 0].contiguous()
-    k2 = slot_compact(*k1[:3], kept, m_cap)
-    k2p = slot_compact_plain(*k1[:3], kept, m_cap)
-    errs["slot_compact"] = max_abs_err([*k2[0], k2[1]], [*k2p[0], k2p[1]])
-    min_hash = k2[0][2]
-    k3 = assemble_kminmers_cuda(min_hash, spec.k)
-    k3p = assemble_kminmers(min_hash, spec.k)
-    errs["assemble"] = max_abs_err([*k3[0], k3[1]], [*k3p[0], k3p[1]])
-    torch.cuda.synchronize()
-    for name, err in errs.items():
-        log(f"{name}: kernel vs plain max_abs_err={err} (tolerance 0: bit-exact)")
-        check(err == 0, f"{name} kernel differs from its plain version")
+    record("fused_scan", "u32 hpcsimd l=31",
+           max_abs_err([valid_slots(t, k1[3]) for t in k1[:3]] + [k1[3]], k1p))
     n_raw_tiles = int(k1[3][:, :, 1].sum())
     check(n_raw_tiles > 0, "K1 selected no minimizer")
     check(bool((k1[3][:, :, 0] == k1[3][:, :, 1]).all()), "K1 tile overflow")
+    kept = k1[3][:, :, 0].contiguous()
+    k2 = slot_compact(*k1[:3], kept, m_cap)
+    k2p = slot_compact_plain(*k1[:3], kept, m_cap)
+    record("slot_compact", "u32", max_abs_err([*k2[0], k2[1]], [*k2p[0], k2p[1]]))
+    min_hash = k2[0][2]
+    k3 = assemble_kminmers_cuda(min_hash, spec.k)
+    k3p = assemble_plain(min_hash, spec.k)
+    record("assemble", "xorshift u32", max_abs_err([*k3[0], k3[1]], [*k3p[0], k3p[1]]))
+
+    # K1 at the other widths (per tile cap = the tile: lossless), then K2
+    # with the hi column and K3 on the width-64 stream.
+    width_scans = {}
+    for mode, w, v in (("regular", 16, "nthash1"), ("regular", 64, "nthash1"),
+                       ("hpcsimd", 32, "nthash2")):
+        ws = PipelineSpec(l=31, k=5, density=0.01, mode=mode, hash_width=w, variant=v)
+        lim = limit if ws.is_hpc else torch.full_like(lengths, L - ws.l)
+        args = (codes, lengths, lim, ws.l, ws.bound, ws.strict_threshold,
+                ws.is_hpc, False, TILE, TILE, w, v)
+        got, want = fused_minimizer_scan(*args), fused_scan_plain(*args)
+        record("fused_scan", f"width {w} {v} {mode} l=31", max_abs_err(
+            [valid_slots(t, got[3]) for t in flat(got[:3])] + [got[3]],
+            flat(want[:3]) + [want[3]]))
+        check(int(got[3][:, :, 1].sum()) > 0, f"K1 width {w} {v} selected nothing")
+        width_scans[w, v] = (args, got)
+    got64 = width_scans[64, "nthash1"][1]
+    kept64 = got64[3][:, :, 0].contiguous()
+    m64 = u64_spec.capacity_for(L)
+    k2_64 = slot_compact(*got64[:3], kept64, m64)
+    k2p_64 = slot_compact_plain(*got64[:3], kept64, m64)
+    record("slot_compact", "with hash_hi", max_abs_err(
+        flat(k2_64[0]) + [k2_64[1]], flat(k2p_64[0]) + [k2p_64[1]]))
+    hi64, lo64 = k2_64[0][2]
+    mix_inputs = {
+        16: (torch.bitwise_and(min_hash, 0xFFFF), None),
+        64: (lo64, hi64),
+    }
+    for w, (lo, hi) in mix_inputs.items():
+        got = assemble_kminmers_cuda(lo, spec.k, w, hi)
+        want = assemble_plain(lo, spec.k, w, hi)
+        record("assemble", f"{'murmur u16' if w == 16 else 'identity u64'}",
+               max_abs_err([*got[0], got[1]], [*want[0], want[1]]))
+
+    # K4 (a): the dense packed HPC compaction, one column, m = L.
+    keep = hpc_keep_mask(codes, lengths)
+    j = torch.arange(L, dtype=torch.int32, device=dev)
+    packed = (j[None, :] << 3) | (codes & 7).to(torch.int32)
+    hpc_args = (keep, [packed], L, [(L << 3) | CODE_PAD])
+    got, want = masked_compact(*hpc_args), compact(*hpc_args)
+    record("masked_compact", "(a) dense HPC, m = L", max_abs_err(
+        [*got[0], got[1]], [*want[0], want[1]]))
+    log(f"  (a) kept {int(got[1].sum())} of {B * L} bases")
+    # K4 (b): 3 columns at a 1% mask, m = capacity_for(L).
+    nwin = L - spec.l + 1
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sel = torch.rand((B, nwin), generator=g, device=dev) < 0.01
+    st = torch.arange(nwin, dtype=torch.int32, device=dev).expand(B, nwin).contiguous()
+    hs = torch.randint(-(2**31), 2**31 - 1, (B, nwin), generator=g, device=dev,
+                       dtype=torch.int32)
+    min_args = (sel, [st, st + (spec.l - 1), hs], spec.capacity_for(L), [0, 0, 0])
+    got, want = masked_compact(*min_args), compact(*min_args)
+    record("masked_compact", "(b) 3 columns, 1% mask", max_abs_err(
+        [*got[0], got[1]], [*want[0], want[1]]))
+    torch.cuda.synchronize()
 
     # 4. the goldens, on the card
-    golden = json.loads((REPO / "tests/data/goldens_u32.json").read_text())
     seq = (REPO / "tests/data/ecoli.genome.100k.fa").read_text().split("\n")[1]
-    recs = kminmers_list(
-        seq, golden["l"], golden["k"], golden["density"], golden["mode"], device=dev
-    )
-    check([r.hash for r in recs] == golden["hashes"], "u32 goldens")
-    log(f"goldens: {len(recs)} u32 k-min-mer hashes equal the reference's")
+    for name in ("goldens_u32.json", "goldens_u64.json"):
+        golden = json.loads((REPO / "tests/data" / name).read_text())
+        recs = kminmers_list(
+            seq, golden["l"], golden["k"], golden["density"], golden["mode"],
+            device=dev, hash_width=golden["hash_width"],
+        )
+        check([r.hash for r in recs] == golden["hashes"], name)
+        log(f"goldens: {len(recs)} u{golden['hash_width']} k-min-mer hashes "
+            "equal the reference's")
 
-    # 5. the main path, through the user entry point, with counters at 0
-    build.launches.clear()
-    out = kminmers_batch(codes, lengths, spec)
-    torch.cuda.synchronize()
-    launches = {name: build.launches[name] for name in KERNELS}
-    log(f"main path launches: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"the main path never launched {name}")
-    plain = kminmer_pipeline_plain(codes, lengths, spec)
-    torch.cuda.synchronize()
-    for name, g, w in zip(out._fields, out, plain):
-        check(g.shape == w.shape and g.dtype == w.dtype, f"{name} shape/dtype")
-        check(torch.equal(g, w), f"main path field {name} differs from plain")
-    mk = m_cap - spec.k + 1
-    check(tuple(out.hash_lo.shape) == (B, mk), "k-min-mer shape")
-    check(torch.equal(out.n_minimizers, out.n_minimizers_raw), "minimizers lost")
-    n_km = int(out.n_kminmers.sum())
-    check(n_km > 0, "no k-min-mers")
-    log(f"main path [{B}, {L}] hpcsimd: all 12 KminmerBatch fields equal the "
-        f"plain pipeline on the card; {n_km} k-min-mers, "
-        f"{int(out.n_minimizers.sum())} minimizers")
+    # 5. each path through the user entry point, counters at 0 just before
+    path_kernels = {
+        "main": (spec, ("fused_scan", "slot_compact", "assemble"), ("masked_compact",)),
+        "general": (general_spec, ("masked_compact", "assemble"),
+                    ("fused_scan", "slot_compact")),
+        "u64": (u64_spec, ("fused_scan", "slot_compact", "assemble"), ("masked_compact",)),
+    }
+    launches = {name: 0 for name in KERNELS}
+    for path, (ps, used, unused) in path_kernels.items():
+        build.launches.clear()
+        out = kminmers_batch(codes, lengths, ps)
+        torch.cuda.synchronize()
+        ran = {name: build.launches[name] for name in KERNELS}
+        log(f"{path} path launches: {ran}")
+        for name in used:
+            check(ran[name] > 0, f"the {path} path never launched {name}")
+            launches[name] += ran[name]
+        for name in unused:
+            check(ran[name] == 0, f"the {path} path launched {name}")
+        plain = kminmer_pipeline_plain(codes, lengths, ps)
+        torch.cuda.synchronize()
+        for name, gv, wv in zip(out._fields, out, plain):
+            check(gv.shape == wv.shape and gv.dtype == wv.dtype, f"{name} shape/dtype")
+            check(torch.equal(gv, wv), f"{path} path field {name} differs from plain")
+        mk = out.min_hash.shape[1] - ps.k + 1
+        check(tuple(out.hash_lo.shape) == (B, mk), "k-min-mer shape")
+        check(torch.equal(out.n_minimizers, out.n_minimizers_raw), "minimizers lost")
+        if ps.hash_width == 64:
+            check(int(out.min_hash_hi.abs().sum()) > 0, "no high hash words")
+        n_km = int(out.n_kminmers.sum())
+        check(n_km > 0, f"{path} path: no k-min-mers")
+        log(f"{path} path [{B}, {L}] {ps.mode} w{ps.hash_width} {ps.variant} "
+            f"l={ps.l}: all 12 KminmerBatch fields equal the plain pipeline on "
+            f"the card; {n_km} k-min-mers, {int(out.n_minimizers.sum())} minimizers")
 
     # 6. timing (CUDA events, after warm-up)
     def time_ms(fn, reps, warmup=2):
@@ -199,12 +303,27 @@ def main():
         e1.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def gbps(ms):
+        return B * L / (ms * 1e-3) / 1e9
+
     torch.cuda.reset_peak_memory_stats(dev)
+    live = torch.cuda.memory_allocated(dev)  # the inputs and earlier results
     step_ms = time_ms(lambda i: kminmer_pipeline(pool[i % 2], lengths, spec), 20)
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    peak_gib = (torch.cuda.max_memory_allocated(dev) - live) / 2**30
     plain_step_ms = time_ms(
         lambda i: kminmer_pipeline_plain(pool[i % 2], lengths, spec), 3, 1
     )
+    log(f"main path step [{B}, {L}] hpcsimd on {card}: {step_ms:.4f} ms = "
+        f"{gbps(step_ms):.4f} GB/s (plain pipeline {plain_step_ms:.4f} ms = "
+        f"{gbps(plain_step_ms):.4f} GB/s); peak device memory of a step "
+        f"{peak_gib:.3f} GiB above what was live")
+    for path in ("general", "u64"):
+        ps = path_kernels[path][0]
+        t = time_ms(lambda i: kminmer_pipeline(pool[i % 2], lengths, ps), 10)
+        tp = time_ms(lambda i: kminmer_pipeline_plain(pool[i % 2], lengths, ps), 3, 1)
+        log(f"{path} path step [{B}, {L}] on {card}: {t:.4f} ms = {gbps(t):.4f} "
+            f"GB/s (plain pipeline {tp:.4f} ms = {gbps(tp):.4f} GB/s)")
+
     k1_runs = [
         fused_minimizer_scan(c, lengths, limit, *scan_args, TILE, cap) for c in pool
     ]
@@ -217,6 +336,7 @@ def main():
             lambda i: slot_compact(*k1_runs[i % 2][:3], kept_runs[i % 2], m_cap),
             50),
         "assemble": time_ms(lambda i: assemble_kminmers_cuda(min_hash, spec.k), 50),
+        "masked_compact": time_ms(lambda i: masked_compact(*hpc_args), 20),
     }
     plain_ms = {
         "fused_scan": time_ms(
@@ -225,15 +345,31 @@ def main():
         "slot_compact": time_ms(
             lambda i: slot_compact_plain(
                 *k1_runs[i % 2][:3], kept_runs[i % 2], m_cap), 10),
-        "assemble": time_ms(lambda i: assemble_kminmers(min_hash, spec.k), 10),
+        "assemble": time_ms(lambda i: assemble_plain(min_hash, spec.k), 10),
+        "masked_compact": time_ms(lambda i: compact(*hpc_args), 5, 1),
     }
-    gbps = B * L / (step_ms * 1e-3) / 1e9
-    plain_gbps = B * L / (plain_step_ms * 1e-3) / 1e9
-    log(f"main path step [{B}, {L}] hpcsimd on {card}: {step_ms:.4f} ms = "
-        f"{gbps:.4f} GB/s (plain pipeline {plain_step_ms:.4f} ms = "
-        f"{plain_gbps:.4f} GB/s); peak device memory {peak_gib:.3f} GiB")
     for name in KERNELS:
         log(f"{name} on {card}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms")
+    extra = {
+        "masked_compact (b) 3 columns, 1% mask": (
+            lambda i: masked_compact(*min_args), lambda i: compact(*min_args)),
+        "assemble murmur u16": (
+            lambda i: assemble_kminmers_cuda(mix_inputs[16][0], spec.k, 16),
+            lambda i: assemble_plain(mix_inputs[16][0], spec.k, 16)),
+        "assemble identity u64": (
+            lambda i: assemble_kminmers_cuda(lo64, spec.k, 64, hi64),
+            lambda i: assemble_plain(lo64, spec.k, 64, hi64)),
+        "slot_compact with hash_hi": (
+            lambda i: slot_compact(*got64[:3], kept64, m64),
+            lambda i: slot_compact_plain(*got64[:3], kept64, m64)),
+    }
+    for (w, v), (args, _) in width_scans.items():
+        extra[f"fused_scan width {w} {v}"] = (
+            lambda i, a=args: fused_minimizer_scan(*a),
+            lambda i, a=args: fused_scan_plain(*a))
+    for what, (kern, plain) in extra.items():
+        log(f"{what} on {card}: kernel {time_ms(kern, 20):.4f} ms, "
+            f"plain {time_ms(plain, 3, 1):.4f} ms")
 
     print(json.dumps({"kernels": [
         {

@@ -1,9 +1,12 @@
 """User-facing API: one sequence in, its k-min-mer records out.
 
 ``KminmersIterator(seq, l, k, density, mode)`` and ``kminmers_list``
-mirror the reference package's surface; a single read is padded to a
-power-of-two length and run through the batched pipeline on ``device``.
-``kminmers_batch`` adds the overflow rescue to ``kminmer_pipeline``.
+mirror the reference package's surface (``hash_width``, ``variant``,
+``strict_limits``); a single read is padded to a power-of-two length and
+run through the batched pipeline on ``device``.  ``kminmers_batch`` adds
+the overflow rescue to ``kminmer_pipeline``.  The reference's
+``backend="oracle"`` has no counterpart: its oracle lives in the
+reference package, which imports jax.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ from .constants import XCODE_PAD, encode_xcodes, family_of_mode
 from .ops.pipeline import PipelineSpec, kminmer_pipeline
 from .ops.u64 import to_py_u64
 
-# Reference limit: the SIMD paths assert l <= 31, where 32-bit NtHash1
-# stops being a rolling hash of distinct rotations.
+# Reference limits: the SIMD paths assert l <= 31, where 32-bit NtHash1
+# stops being a rolling hash of distinct rotations; the scalar HPC path
+# takes l < 256.  Both hold only for nthash1 under strict_limits.
 MAX_L_SIMD = 31
+MAX_L_HPC = 255
 
 
 class KSizeTooBig(ValueError):
@@ -92,7 +97,8 @@ def rescue_spec(spec: PipelineSpec, m_cap_needed: int = 0) -> PipelineSpec:
 def kminmers_batch(codes, lengths, spec: PipelineSpec, max_retries: int = 8):
     """kminmer_pipeline with overflow rescue.  A read whose raw selected
     count exceeds its kept count lost survivors to a tile's or the
-    stream's capacity; the batch then reruns on ``rescue_spec``.
+    stream's capacity (on the general path, only to the stream's); the
+    batch then reruns on ``rescue_spec``.
 
     Returns a KminmerBatch whose n_minimizers == n_minimizers_raw."""
     for _ in range(max_retries):
@@ -107,16 +113,22 @@ def kminmers_batch(codes, lengths, spec: PipelineSpec, max_retries: int = 8):
 
 
 def kminmers_list(
-    seq, l: int, k: int, density: float, mode="regular", device="cuda"
+    seq, l: int, k: int, density: float, mode="regular", device="cuda",
+    strict_limits: bool = True, hash_width: int = 32, variant: str = "nthash1",
 ) -> List[KminmerRecord]:
     """All k-min-mers of one sequence, in order.  ``seq`` is str, bytes or
     a pre-encoded integer array of xcodes.  ``device`` must exist: on a
     machine without a GPU, pass ``device="cpu"`` to run the plain
-    versions."""
+    versions.  ``hash_width`` (16/32/64) and ``variant`` ("nthash1", or
+    "nthash2" for l > 31) select the minimizer hash; ``strict_limits``
+    raises KSizeTooBig past the reference's limits for nthash1."""
     mode = _mode_name(mode)
     device = _device(device)
-    if mode in ("simd", "hpcsimd") and l > MAX_L_SIMD:
-        raise KSizeTooBig(f"l={l} exceeds {MAX_L_SIMD} for SIMD modes")
+    if strict_limits and variant == "nthash1":
+        if mode in ("simd", "hpcsimd") and l > MAX_L_SIMD:
+            raise KSizeTooBig(f"l={l} exceeds {MAX_L_SIMD} for SIMD modes")
+        if mode == "hpc" and l > MAX_L_HPC:
+            raise KSizeTooBig(f"l={l} exceeds {MAX_L_HPC} for Hpc mode")
     if isinstance(seq, np.ndarray) and np.issubdtype(seq.dtype, np.integer):
         codes = seq.astype(np.uint8, copy=False)
     else:
@@ -124,10 +136,13 @@ def kminmers_list(
     n = len(codes)
     if n <= l:
         return []
-    L = _bucket_length(n)
+    L = _bucket_length(max(n, l + 1))
     padded = np.full((1, L), XCODE_PAD, dtype=np.uint8)
     padded[0, :n] = codes
-    spec = PipelineSpec(l=l, k=k, density=density, mode=mode)
+    spec = PipelineSpec(
+        l=l, k=k, density=density, mode=mode, hash_width=hash_width,
+        variant=variant,
+    )
     out = kminmers_batch(
         torch.from_numpy(padded).to(device),
         torch.tensor([n], dtype=torch.int32, device=device),
@@ -161,9 +176,13 @@ class KminmersIterator:
 
     def __init__(
         self, seq, l: int, k: int, density: float, mode="regular",
-        device="cuda",
+        device="cuda", strict_limits: bool = True, hash_width: int = 32,
+        variant: str = "nthash1",
     ):
-        self._records = kminmers_list(seq, l, k, density, mode, device)
+        self._records = kminmers_list(
+            seq, l, k, density, mode, device, strict_limits=strict_limits,
+            hash_width=hash_width, variant=variant,
+        )
 
     def __iter__(self) -> Iterator[KminmerRecord]:
         return iter(self._records)

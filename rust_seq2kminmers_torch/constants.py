@@ -1,4 +1,4 @@
-"""NtHash1 seeds, base codes, xcode layout and density bounds (numpy only).
+"""NtHash seeds, base codes, xcode layout and density bounds (numpy only).
 
 Copies of the parts of ``rust_seq2kminmers_tpu.constants`` that the port
 uses.  The reference package cannot be imported here: its ``__init__``
@@ -22,12 +22,39 @@ SEED_T64 = 0x295549F54BE24456
 
 MASK32 = 0xFFFFFFFF
 U32_MAX = 0xFFFFFFFF
+U64_MAX = 0xFFFFFFFFFFFFFFFF
 
 # The active H=u32 configuration keeps the low 32 bits of each seed.
 SEED_A = SEED_A64 & MASK32
 SEED_C = SEED_C64 & MASK32
 SEED_G = SEED_G64 & MASK32
 SEED_T = SEED_T64 & MASK32
+
+
+def seed_tables(hash_width: int):
+    """(forward, reverse) seed tables per code at a hash width: the LOW
+    ``hash_width`` bits of the 64-bit seeds, as uint16 / uint32 / uint64."""
+    if hash_width == 64:
+        dt, mask = np.uint64, U64_MAX
+    elif hash_width == 32:
+        dt, mask = np.uint32, MASK32
+    elif hash_width == 16:
+        dt, mask = np.uint16, 0xFFFF
+    else:
+        raise ValueError(f"hash_width must be 16/32/64, got {hash_width}")
+    seeds = [SEED_A64, SEED_C64, SEED_G64, SEED_T64]
+    f = np.array([s & mask for s in seeds] + [0, 1, 0], dtype=dt)
+    r = np.array([s & mask for s in seeds[::-1]] + [0, 1, 0], dtype=dt)
+    return f, r
+
+
+def seed_tables_nthash2_31():
+    """Seed tables of the NtHash2-hybrid 31-bit variant: the TOP 31 bits of
+    the 64-bit seeds (``SEED >> 33``), rotated mod 31."""
+    seeds = [SEED_A64, SEED_C64, SEED_G64, SEED_T64]
+    f = np.array([s >> 33 for s in seeds] + [0, 1, 0], dtype=np.uint32)
+    r = np.array([s >> 33 for s in seeds[::-1]] + [0, 1, 0], dtype=np.uint32)
+    return f, r
 
 CODE_A = 0
 CODE_C = 1
@@ -110,6 +137,19 @@ def encode_xcodes(
 def hash_bound_u32(density: float) -> int:
     """Scalar-mode bound: trunc(density * u32::MAX), in f64."""
     return min(U32_MAX, int(np.float64(density) * np.float64(U32_MAX)))
+
+
+def hash_bound(density: float, hash_width: int) -> int:
+    """Scalar-mode bound at any width: trunc(density * H::MAX) in f64,
+    clamped to [0, H::MAX] (``u64::MAX as f64`` rounds to 2^64)."""
+    hmax = (1 << hash_width) - 1
+    return min(hmax, max(0, int(np.float64(density) * np.float64(hmax))))
+
+
+def hash_bound_nthash2_31(density: float) -> int:
+    """NtHash2-31 SIMD-mode bound: the f32 SIMD bound halved, since the
+    31-bit hash space is half the 32-bit one."""
+    return hash_bound_simd_u32(density) // 2
 
 
 def hash_bound_simd_u32(density: float) -> int:

@@ -16,15 +16,11 @@ from .ops.pipeline import KminmerBatch, PipelineSpec
 
 def spec_from_jax(jax_spec) -> PipelineSpec:
     """The port's PipelineSpec for a reference ``PipelineSpec``, read
-    through its dataclass fields.  Its TPU capacities (``slots``,
-    ``rows_out``) and ``compaction`` have no counterpart, except that
-    ``rows_out == 0`` (the lossless rescue) maps to ``tile_cap = 0``."""
+    through its dataclass fields, hash width and variant included.  Its
+    TPU capacities (``slots``, ``rows_out``) and ``compaction`` have no
+    counterpart, except that ``rows_out == 0`` (the lossless rescue) maps
+    to ``tile_cap = 0``."""
     f = {fld.name: getattr(jax_spec, fld.name) for fld in dataclasses.fields(jax_spec)}
-    if f.get("hash_width", 32) != 32 or f.get("variant", "nthash1") != "nthash1":
-        raise ValueError(
-            "only hash_width=32 with variant='nthash1' is ported, got "
-            f"hash_width={f.get('hash_width')} variant={f.get('variant')!r}"
-        )
     return PipelineSpec(
         l=f["l"],
         k=f["k"],
@@ -32,6 +28,8 @@ def spec_from_jax(jax_spec) -> PipelineSpec:
         mode=f["mode"],
         max_minimizers=f["max_minimizers"],
         tile_cap=0 if f.get("rows_out") == 0 else None,
+        hash_width=f["hash_width"],
+        variant=f["variant"],
     )
 
 

@@ -1,13 +1,15 @@
-// K1, fused minimizer scan: HPC left-pack, canonical NtHash1-32 over the
-// kept stream, density select and the per-tile survivor pack, in one pass
-// over the xcodes.
+// K1, fused minimizer scan: HPC left-pack, canonical NtHash over the kept
+// stream, density select and the per-tile survivor pack, in one pass over
+// the xcodes.  The hash is NtHash1 at width 16, 32 or 64, or the
+// NtHash2-hybrid 31-bit variant: one template instance each.
 //
 // Replaces: rust_seq2kminmers_tpu/ops/pallas/fused_scan.py:_fused_kernel
 // (wrapper fused_minimizer_scan).  What it computes is the same; the TPU
 // mechanics (where-select seed tree, bit-decomposed move networks, MXU
-// ranks, the 8-row pending prefix, u32 emulated on int32) are replaced by
-// a table in shared memory, __ballot_sync/__popc block scans and native
-// uint32_t.
+// ranks, the 8-row pending prefix, u32 emulated on int32, u64 as (hi, lo)
+// int32 pairs, mod 31 through f32 division) are replaced by a table in
+// shared memory, __ballot_sync/__popc block scans and native uint32_t /
+// uint64_t arithmetic.
 //
 // Bound on this card: it reads 1 byte per base and writes ~12 bytes per
 // survivor (~1% of bases), so it is memory-light; the work is the window
@@ -26,7 +28,8 @@
 // element, or its one-past-last element in hpc mode) are left-packed into
 // out_*[b, t, 0:cap] in stream order; counts[b, t] = (kept survivors,
 // raw selected, kept stream elements).  Slots past the kept count are
-// left unwritten.
+// left unwritten.  out_hash holds the hash's low 32 bits; at width 64,
+// out_hash_hi its high 32 bits.
 
 #include "common.cuh"
 
@@ -36,19 +39,54 @@ constexpr int NT = 1024;    // threads per block = bases per step
 constexpr int LMAX = 255;   // largest l: the carry is l elements
 constexpr int BUF = NT + LMAX;
 
+// A hash width: its value type, rotate (the amount taken mod the width)
+// and the amount that rotates by -r.
+struct H32 {
+  using T = uint32_t;
+  __device__ static T rol(T x, uint32_t r) { return s2k::rol32(x, r); }
+  __device__ static uint32_t neg(uint32_t r) { return 0u - r; }
+};
+
+struct H16 {  // values below 2^16 in 32-bit lanes
+  using T = uint32_t;
+  __device__ static T rol(T x, uint32_t r) {
+    r &= 15u;
+    return ((x << r) | (x >> (16u - r))) & 0xFFFFu;
+  }
+  __device__ static uint32_t neg(uint32_t r) { return 0u - r; }
+};
+
+struct H31 {  // NtHash2-hybrid: values below 2^31, rotates mod 31
+  using T = uint32_t;
+  __device__ static T rol(T x, uint32_t r) {
+    r %= 31u;  // x >> 31 is 0 at r = 0: x < 2^31
+    return ((x << r) | (x >> (31u - r))) & 0x7FFFFFFFu;
+  }
+  __device__ static uint32_t neg(uint32_t r) { return (31u - r % 31u) % 31u; }
+};
+
+struct H64 {
+  using T = uint64_t;
+  __device__ static T rol(T x, uint32_t r) { return s2k::rol64(x, r); }
+  __device__ static uint32_t neg(uint32_t r) { return 0u - r; }
+};
+
+template <typename H>
 __global__ void __launch_bounds__(NT) fused_scan_kernel(
     const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
-    const int32_t* __restrict__ limits, const uint32_t* __restrict__ seeds,
-    int32_t* __restrict__ out_start, int32_t* __restrict__ out_end,
-    int32_t* __restrict__ out_hash, int32_t* __restrict__ counts, int L,
-    int l, uint32_t bound, int strict, int do_hpc, int hpc_end, int tile,
-    int cap, int nt) {
+    const int32_t* __restrict__ limits,
+    const typename H::T* __restrict__ seeds, int32_t* __restrict__ out_start,
+    int32_t* __restrict__ out_end, int32_t* __restrict__ out_hash,
+    int32_t* __restrict__ out_hash_hi, int32_t* __restrict__ counts, int L,
+    int l, typename H::T bound, int strict, int do_hpc, int hpc_end,
+    int tile, int cap, int nt) {
+  using T = typename H::T;
   // Stream buffer: [0, l) holds the carry (the l kept elements before this
   // step, right-aligned), [l, l + cnt) the elements kept in this step.
   // For each element: its two pre-rotated seed terms and its position.
-  __shared__ uint32_t s_af[BUF], s_ar[BUF];
+  __shared__ T s_af[BUF], s_ar[BUF];
   __shared__ int32_t s_pos[BUF];
-  __shared__ uint32_t s_seed[16];  // forward seeds [0, 8), reverse [8, 16)
+  __shared__ T s_seed[16];  // forward seeds [0, 8), reverse [8, 16)
   __shared__ int s_tot_keep[32], s_tot_sel[32];
 
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -77,8 +115,8 @@ __global__ void __launch_bounds__(NT) fused_scan_kernel(
       if (keep) {
         const int e = l + rank;
         const uint32_t r = (uint32_t)(base + rank);
-        s_af[e] = s2k::rol32(s_seed[code], 0u - r);
-        s_ar[e] = s2k::rol32(s_seed[8 + code], r);
+        s_af[e] = H::rol(s_seed[code], H::neg(r));
+        s_ar[e] = H::rol(s_seed[8 + code], r);
         s_pos[e] = j;
       }
       __syncthreads();
@@ -88,17 +126,17 @@ __global__ void __launch_bounds__(NT) fused_scan_kernel(
       const int i = tid + (hpc_end ? 0 : 1);
       const int f = base - l + i;  // global kept rank of the window start
       bool sel = false;
-      uint32_t h = 0;
+      T h = 0;
       int st = 0, en = 0;
       if (tid < cnt && f >= 0 && f <= limit) {
-        uint32_t wf = 0, wr = 0;
+        T wf = 0, wr = 0;
         for (int q = 0; q < l; ++q) {
           wf ^= s_af[i + q];
           wr ^= s_ar[i + q];
         }
-        const uint32_t fh = s2k::rol32(wf, (uint32_t)(l - 1 + f));
-        const uint32_t rh = s2k::rol32(wr, 0u - (uint32_t)f);
-        h = min(fh, rh);
+        const T fh = H::rol(wf, (uint32_t)(l - 1 + f));
+        const T rh = H::rol(wr, H::neg((uint32_t)f));
+        h = fh < rh ? fh : rh;
         sel = strict ? (h < bound) : (h <= bound);
         st = s_pos[i];
         en = hpc_end ? s_pos[i + l] - 1 : s_pos[i + l - 1];
@@ -109,13 +147,16 @@ __global__ void __launch_bounds__(NT) fused_scan_kernel(
       if (sel && slot < cap) {
         out_start[obase + slot] = st;
         out_end[obase + slot] = en;
-        out_hash[obase + slot] = (int32_t)h;
+        out_hash[obase + slot] = (int32_t)(uint32_t)h;
+        if constexpr (sizeof(T) == 8) {
+          out_hash_hi[obase + slot] = (int32_t)(uint32_t)(h >> 32);
+        }
       }
       tile_raw += nsel;
       tile_stream += cnt;
 
       // The last l elements become the next step's carry.
-      uint32_t ca = 0, cr = 0;
+      T ca = 0, cr = 0;
       int cp = 0;
       if (tid < l) {
         ca = s_af[cnt + tid];
@@ -140,20 +181,46 @@ __global__ void __launch_bounds__(NT) fused_scan_kernel(
   }
 }
 
+template <typename H>
+void launch(const void* codes, const void* lengths, const void* limits,
+            const void* seeds, void* out_start, void* out_end,
+            void* out_hash, void* out_hash_hi, void* counts, int B, int L,
+            int l, uint64_t bound, int strict, int do_hpc, int hpc_end,
+            int tile, int cap, int nt, cudaStream_t stream) {
+  using T = typename H::T;
+  fused_scan_kernel<H><<<B, NT, 0, stream>>>(
+      (const uint8_t*)codes, (const int32_t*)lengths, (const int32_t*)limits,
+      (const T*)seeds, (int32_t*)out_start, (int32_t*)out_end,
+      (int32_t*)out_hash, (int32_t*)out_hash_hi, (int32_t*)counts, L, l,
+      (T)bound, strict, do_hpc, hpc_end, tile, cap, nt);
+}
+
 }  // namespace
 
+// width: 16, 32 or 64 (NtHash1), or 31 (the NtHash2-hybrid variant).
+// seeds: 16 values of the width's type (uint64_t at 64, else uint32_t);
+// out_hash_hi is written only at width 64.
 extern "C" int s2k_fused_scan(const void* codes, const void* lengths,
                               const void* limits, const void* seeds,
                               void* out_start, void* out_end, void* out_hash,
-                              void* counts, int B, int L, int l,
-                              uint32_t bound, int strict, int do_hpc,
-                              int hpc_end, int tile, int cap, int nt,
-                              void* stream) {
+                              void* out_hash_hi, void* counts, int B, int L,
+                              int l, uint64_t bound, int width, int strict,
+                              int do_hpc, int hpc_end, int tile, int cap,
+                              int nt, void* stream) {
   if (l < 2 || l > LMAX) return (int)cudaErrorInvalidValue;
-  fused_scan_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, (const int32_t*)lengths,
-      (const int32_t*)limits, (const uint32_t*)seeds, (int32_t*)out_start,
-      (int32_t*)out_end, (int32_t*)out_hash, (int32_t*)counts, L, l, bound,
-      strict, do_hpc, hpc_end, tile, cap, nt);
+  if (width != 64 && bound > 0xFFFFFFFFull) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define S2K_LAUNCH(H)                                                       \
+  launch<H>(codes, lengths, limits, seeds, out_start, out_end, out_hash,    \
+            out_hash_hi, counts, B, L, l, bound, strict, do_hpc, hpc_end,   \
+            tile, cap, nt, s)
+  switch (width) {
+    case 16: S2K_LAUNCH(H16); break;
+    case 31: S2K_LAUNCH(H31); break;
+    case 32: S2K_LAUNCH(H32); break;
+    case 64: S2K_LAUNCH(H64); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef S2K_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,8 @@
 // One block per read scans the counts in chunks of NT tiles in shared
 // memory; its warps then copy one tile each.  Slots past the total (or
 // past m) are written as zeros; survivors past m are dropped and show as
-// n_slotted > m.
+// n_slotted > m.  At hash width 64 a fourth column, the hash's high words,
+// rides along; its pointers are null otherwise.
 
 #include "common.cuh"
 
@@ -24,10 +25,12 @@ constexpr int NWARPS = NT / 32;
 
 __global__ void __launch_bounds__(NT) slot_compact_kernel(
     const int32_t* __restrict__ in_start, const int32_t* __restrict__ in_end,
-    const int32_t* __restrict__ in_hash, const int32_t* __restrict__ kept,
+    const int32_t* __restrict__ in_hash,
+    const int32_t* __restrict__ in_hash_hi, const int32_t* __restrict__ kept,
     int32_t* __restrict__ out_start, int32_t* __restrict__ out_end,
-    int32_t* __restrict__ out_hash, int32_t* __restrict__ n_slotted, int nt,
-    int cap, int m) {
+    int32_t* __restrict__ out_hash, int32_t* __restrict__ out_hash_hi,
+    int32_t* __restrict__ n_slotted, int nt, int cap, int m) {
+  const bool has_hi = in_hash_hi != nullptr;
   __shared__ int s_off[NT], s_cnt[NT];
   __shared__ int s_tot[32];
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -50,6 +53,7 @@ __global__ void __launch_bounds__(NT) slot_compact_kernel(
         out_start[ob + off + e] = in_start[src + e];
         out_end[ob + off + e] = in_end[src + e];
         out_hash[ob + off + e] = in_hash[src + e];
+        if (has_hi) out_hash_hi[ob + off + e] = in_hash_hi[src + e];
       }
     }
     running += total;
@@ -59,20 +63,27 @@ __global__ void __launch_bounds__(NT) slot_compact_kernel(
     out_start[ob + d] = 0;
     out_end[ob + d] = 0;
     out_hash[ob + d] = 0;
+    if (has_hi) out_hash_hi[ob + d] = 0;
   }
   if (tid == 0) n_slotted[b] = running;
 }
 
 }  // namespace
 
+// in_hash_hi and out_hash_hi are both null, or both given (hash width 64).
 extern "C" int s2k_slot_compact(const void* in_start, const void* in_end,
-                                const void* in_hash, const void* kept,
-                                void* out_start, void* out_end,
-                                void* out_hash, void* n_slotted, int B,
+                                const void* in_hash, const void* in_hash_hi,
+                                const void* kept, void* out_start,
+                                void* out_end, void* out_hash,
+                                void* out_hash_hi, void* n_slotted, int B,
                                 int nt, int cap, int m, void* stream) {
+  if ((in_hash_hi == nullptr) != (out_hash_hi == nullptr))
+    return (int)cudaErrorInvalidValue;
   slot_compact_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in_start, (const int32_t*)in_end,
-      (const int32_t*)in_hash, (const int32_t*)kept, (int32_t*)out_start,
-      (int32_t*)out_end, (int32_t*)out_hash, (int32_t*)n_slotted, nt, cap, m);
+      (const int32_t*)in_hash, (const int32_t*)in_hash_hi,
+      (const int32_t*)kept, (int32_t*)out_start, (int32_t*)out_end,
+      (int32_t*)out_hash, (int32_t*)out_hash_hi, (int32_t*)n_slotted, nt,
+      cap, m);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,9 @@ compacted minimizer stream, with 64-bit rotates:
     r(w) = rol64(XOR_{q<k} rol64(m_{w+q},   w+q),  -w)
     hash = min(f, r),  rev = r < f
 
-where m_j is the xorshift-mixed u32 minimizer hash.  This is the plain
-version of the assembly kernel (``ops/cuda/assemble_kernel.py``).
+where m_j is the minimizer hash mixed to u64 per hash width: xorshift of
+a u32, murmur of a u16, identity of a u64.  This is the plain version of
+the assembly kernel (``ops/cuda/assemble_kernel.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,15 @@ from __future__ import annotations
 import torch
 
 from .nthash import sliding_window_xor
-from .u64 import mix64_from_u32, rol64, split_u64, u32, ult64
+from .u64 import (
+    join_u64,
+    mix64_from_u32,
+    mix64_murmur_from_u16,
+    rol64,
+    split_u64,
+    u32,
+    ult64,
+)
 
 
 def assemble_kminmers(min_hash: torch.Tensor, k: int):
@@ -23,14 +32,30 @@ def assemble_kminmers(min_hash: torch.Tensor, k: int):
 
     Windows past a row's count - k + 1 read stream padding; callers mask.
     """
-    M = min_hash.shape[-1]
+    return assemble_kminmers_mixed(mix64_from_u32(u32(min_hash)), k)
+
+
+def assemble_kminmers_mixed(mixed: torch.Tensor, k: int):
+    """The same assembly over minimizer hashes already mixed to u64 (bit
+    patterns in int64, [B, M])."""
+    M = mixed.shape[-1]
     if M < k:
         raise ValueError(f"minimizer capacity {M} < k={k}")
-    m = mix64_from_u32(u32(min_hash))
-    j = torch.arange(M, device=min_hash.device)
+    j = torch.arange(M, device=mixed.device)
     nwin = M - k + 1
     w = j[:nwin]
-    f = rol64(sliding_window_xor(rol64(m, -j), k)[..., :nwin], k - 1 + w)
-    r = rol64(sliding_window_xor(rol64(m, j), k)[..., :nwin], -w)
+    f = rol64(sliding_window_xor(rol64(mixed, -j), k)[..., :nwin], k - 1 + w)
+    r = rol64(sliding_window_xor(rol64(mixed, j), k)[..., :nwin], -w)
     rev = ult64(r, f)
     return split_u64(torch.where(rev, r, f)), rev
+
+
+def assemble_plain(min_hash, k: int, hash_width: int = 32, min_hash_hi=None):
+    """The assembly at a hash width: u32 bit patterns ``min_hash`` (and, at
+    width 64, the high words ``min_hash_hi``) mixed to u64, then
+    assembled."""
+    if hash_width == 32:
+        return assemble_kminmers(min_hash, k)
+    if hash_width == 16:
+        return assemble_kminmers_mixed(mix64_murmur_from_u16(min_hash), k)
+    return assemble_kminmers_mixed(join_u64(min_hash_hi, min_hash), k)

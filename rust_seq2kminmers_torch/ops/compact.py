@@ -23,7 +23,7 @@ def compact(
     """
     B = mask.shape[0]
     rank = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
-    count = (rank[:, -1] + 1).to(torch.int32)
+    count = mask.sum(dim=-1, dtype=torch.int32)
     # Unselected and overflowing elements land in a spare column m.
     dest = torch.where(mask & (rank < m), rank, m)
     outs = []

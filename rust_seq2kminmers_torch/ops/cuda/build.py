@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels and binds them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface, the first time a kernel is launched in
-a process.  The library lands in ``csrc/build/`` (not committed), keyed by
-a hash of the sources and flags, so an edit rebuilds it and an unchanged
-tree reuses it.  Each C entry point returns ``cudaGetLastError()`` after
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per source, all started together) and linked into ONE shared library with
+a plain C interface, the first time a kernel is launched in a process.
+The library lands in ``csrc/build/`` (not committed), keyed by a hash of
+the sources and flags, so an edit rebuilds it and an unchanged tree
+reuses it.  Each C entry point returns ``cudaGetLastError()`` after
 its launch; ``check`` turns a non-zero code into an exception.
 """
 
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -27,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 ]
 
@@ -52,6 +54,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _compile_and_link(sources, objdir: Path, out: Path) -> str:
+    """One nvcc per source, run together, then one link; -> the log."""
+    nvcc = _nvcc()
+    procs = [
+        (src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(objdir / f"{src.stem}.o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+        for src in sources
+    ]
+    log, failed = "", []
+    for src, proc in procs:  # wait for every compiler before raising
+        log += f"== {src.name}\n" + proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(out),
+         *(str(objdir / f"{src.stem}.o") for src in sources)],
+        capture_output=True, text=True,
+    )
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> Library:
     """Build (once per source hash) and load the kernel library."""
@@ -66,11 +96,8 @@ def library() -> Library:
     if built:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            log = _compile_and_link(sources, Path(objdir), tmp)
         log_path.write_text(log)
         os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     log = log_path.read_text() if log_path.exists() else ""

@@ -1,7 +1,8 @@
 """K1: fused minimizer scan (``csrc/fused_scan.cu``) and its plain version.
 
 One pass over xcodes ``uint8[B, L]``: HPC keep (hpc modes), canonical
-NtHash1-32 over the kept stream, density select, and the per-tile pack of
+NtHash over the kept stream (NtHash1 at hash width 16, 32 or 64, or the
+NtHash2-hybrid 31-bit variant), density select, and the per-tile pack of
 the survivors (start, end, hash).  A window belongs to the tile holding
 its emitting element: its last element, or its one-past-last element when
 ``hpc_end`` (hpc mode: end = pos[f+l] - 1, so the final window is never
@@ -17,10 +18,10 @@ import functools
 import numpy as np
 import torch
 
-from ...constants import CODE_PAD, SEED_TABLE_F, SEED_TABLE_R, U32_MAX
+from ...constants import CODE_PAD, seed_tables, seed_tables_nthash2_31
 from ..compact import compact
 from ..hpc import hpc_keep_mask
-from ..nthash import sliding_nthash32
+from ..nthash import below_bound, canonical_nthash
 from ..u64 import i32_bits
 from . import build
 
@@ -28,7 +29,11 @@ TILE = 16384  # bases per output tile
 MAX_L = 255
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 3 + [ctypes.c_uint32] + [_I] * 6 + [_P]
+_ARGTYPES = [_P] * 9 + [_I] * 3 + [ctypes.c_uint64] + [_I] * 7 + [_P]
+
+# Kernel width per (hash_width, variant): 31 is the NtHash2-hybrid variant.
+_WIDTHS = {(16, "nthash1"): 16, (32, "nthash1"): 32, (64, "nthash1"): 64,
+           (32, "nthash2"): 31}
 
 
 def default_tile_cap(density: float, tile: int = TILE) -> int:
@@ -40,13 +45,25 @@ def default_tile_cap(density: float, tile: int = TILE) -> int:
     return int(min(need, tile))
 
 
+def kernel_width(hash_width: int, variant: str) -> int:
+    """The kernel's hash width: 16, 32 or 64, or 31 for nthash2."""
+    if (hash_width, variant) not in _WIDTHS:
+        raise ValueError(
+            f"no hash for hash_width={hash_width} variant={variant!r}"
+        )
+    return _WIDTHS[hash_width, variant]
+
+
 @functools.lru_cache(maxsize=None)
-def _seeds(device: torch.device) -> torch.Tensor:
-    """Forward seeds in [0, 8), reverse seeds in [8, 16), as u32 bits."""
-    t = np.zeros(16, dtype=np.uint32)
-    t[: len(SEED_TABLE_F)] = SEED_TABLE_F
-    t[8 : 8 + len(SEED_TABLE_R)] = SEED_TABLE_R
-    return torch.from_numpy(t.view(np.int32)).to(device)
+def _seeds(device: torch.device, width: int) -> torch.Tensor:
+    """Forward seeds in [0, 8), reverse seeds in [8, 16), as the bits of
+    the width's type: uint64 at width 64, else uint32."""
+    tf, tr = seed_tables_nthash2_31() if width == 31 else seed_tables(width)
+    dt, view = (np.uint64, np.int64) if width == 64 else (np.uint32, np.int32)
+    t = np.zeros(16, dtype=dt)
+    t[: len(tf)] = tf
+    t[8 : 8 + len(tr)] = tr
+    return torch.from_numpy(t.view(view)).to(device)
 
 
 def fused_minimizer_scan(
@@ -60,12 +77,15 @@ def fused_minimizer_scan(
     hpc_end: bool,
     tile: int = TILE,
     cap: int | None = None,  # survivor slots per tile; None = tile
+    hash_width: int = 32,
+    variant: str = "nthash1",
 ):
     """-> (start, end, hash) int32[B, nt, cap] and counts int32[B, nt, 3],
     nt = ceil(L / tile).  Tile t's survivors are the first counts[b, t, 0]
     slots of its row, in stream order; later slots are undefined.
-    ``hash`` holds u32 bit patterns.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    ``hash`` holds u32 bit patterns; at hash_width 64 it is the pair (hi,
+    lo) of the u64's halves.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
     if codes.ndim != 2:
         raise ValueError(f"codes must be [B, L], got {tuple(codes.shape)}")
     B, L = codes.shape
@@ -77,8 +97,9 @@ def fused_minimizer_scan(
         raise ValueError(f"l={l} must be in [2, {MAX_L}]")
     if L >= 1 << 28:
         raise ValueError("padded length must be < 2^28")
-    if not 0 <= bound <= U32_MAX:
-        raise ValueError(f"bound {bound} is not a u32")
+    width = kernel_width(hash_width, variant)
+    if not 0 <= bound < 1 << (64 if width == 64 else 32):
+        raise ValueError(f"bound {bound} does not fit hash width {width}")
     if tile < 1:
         raise ValueError(f"tile={tile} must be positive")
     cap = tile if cap is None else cap
@@ -86,33 +107,37 @@ def fused_minimizer_scan(
         raise ValueError(f"cap={cap} must be in [1, tile={tile}]")
     if dev.type == "cpu":
         return fused_scan_plain(
-            codes, lengths, limit, l, bound, strict, do_hpc, hpc_end, tile, cap
+            codes, lengths, limit, l, bound, strict, do_hpc, hpc_end, tile, cap,
+            hash_width, variant,
         )
     build.require_cuda(dev, codes=codes, lengths=lengths, limit=limit)
     nt = -(-L // tile)
-    start, end, hsh = (
+    start, end, hsh, *hi = (
         torch.empty((B, nt, cap), dtype=torch.int32, device=dev)
-        for _ in range(3)
+        for _ in range(4 if width == 64 else 3)
     )
+    hsh_hi = hi[0] if hi else None
     counts = torch.empty((B, nt, 3), dtype=torch.int32, device=dev)
+    out_hash = hsh if hsh_hi is None else (hsh_hi, hsh)
     if B == 0 or L == 0:
         counts.zero_()
-        return start, end, hsh, counts
-    seeds = _seeds(dev)
+        return start, end, out_hash, counts
     fn = build.function("s2k_fused_scan", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
-            *map(build.ptr, (codes, lengths, limit, seeds, start, end, hsh, counts)),
-            B, L, l, bound, int(strict), int(do_hpc), int(hpc_end), tile, cap, nt,
-            build.stream_of(dev),
+            *map(build.ptr, (codes, lengths, limit, _seeds(dev, width), start, end, hsh)),
+            None if hsh_hi is None else build.ptr(hsh_hi), build.ptr(counts),
+            B, L, l, bound, width, int(strict), int(do_hpc), int(hpc_end), tile,
+            cap, nt, build.stream_of(dev),
         )
     build.launches["fused_scan"] += 1
     build.check(err, "s2k_fused_scan")
-    return start, end, hsh, counts
+    return start, end, out_hash, counts
 
 
 def fused_scan_plain(
-    codes, lengths, limit, l, bound, strict, do_hpc, hpc_end, tile, cap
+    codes, lengths, limit, l, bound, strict, do_hpc, hpc_end, tile, cap,
+    hash_width=32, variant="nthash1",
 ):
     """The plain PyTorch version of the kernel, on any device.  Slots past
     a tile's kept count are zero."""
@@ -127,12 +152,11 @@ def fused_scan_plain(
     (scode, spos), n = compact(
         keep, [codes.to(torch.int64) & 7, j.expand(B, L)], L, [CODE_PAD, L]
     )
-    fh, rh = sliding_nthash32(scode, l)
-    h = torch.minimum(fh, rh)
+    h = canonical_nthash(scode, l, hash_width, variant)
     nwin = L - l + 1
     f = torch.arange(nwin, device=dev)
     emit = f + (l if hpc_end else l - 1)  # stream index of the emitting element
-    passed = (h < bound) if strict else (h <= bound)
+    passed = below_bound(h, bound, strict, hash_width)
     sel = (
         (emit[None, :] < n[:, None])
         & (f[None, :] <= limit[:, None])
@@ -150,14 +174,16 @@ def fused_scan_plain(
     slot = torch.cumsum(seli, dim=1) - 1 - torch.gather(tile_off, 1, etile)
     dest = torch.where(sel & (slot < cap), etile * cap + slot, nt * cap)
     outs = []
-    for col in (start, end, h):
+    # i32_bits keeps the low word: of h, and of h >> 32 (the high word).
+    for col in (start, end, h) + ((h >> 32,) if hash_width == 64 else ()):
         o = torch.zeros((B, nt * cap + 1), dtype=torch.int64, device=dev)
         o.scatter_(1, dest, col)
         outs.append(i32_bits(o[:, :-1]).view(B, nt, cap))
     stream = torch.nn.functional.pad(keep.to(torch.int64), (0, nt * tile - L))
     stream = stream.view(B, nt, tile).sum(dim=2)
     counts = torch.stack([raw.clamp(max=cap), raw, stream], dim=2)
-    return (*outs, counts.to(torch.int32))
+    hsh = outs[2] if hash_width != 64 else (outs[3], outs[2])
+    return outs[0], outs[1], hsh, counts.to(torch.int32)
 
 
 def valid_slots(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

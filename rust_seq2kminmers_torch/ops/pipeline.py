@@ -1,13 +1,30 @@
 """The batched k-min-mer pipeline: xcodes -> KminmerBatch.
 
-    codes uint8[B, L], lengths int32[B]
-      -> K1 fused scan: HPC keep, canonical NtHash1-32, density select,
+Two paths, routed as the reference package routes them: the fused path
+when 2 <= l <= 255, the general path otherwise (l = 1, or l > 255).
+
+    fused path (K1's carry holds up to 255 elements):
+      codes uint8[B, L], lengths int32[B]
+      -> K1 fused scan: HPC keep, canonical NtHash, density select,
          per-tile survivor pack                  (ops/cuda/fused_scan.py)
       -> K2 slot compaction into the ordered minimizer stream [B, m]
                                                  (ops/cuda/slot_compact.py)
-      -> K3 xorshift mix + k-window canonical hash in minimizer space
+      -> K3 mix to u64 + k-window canonical hash in minimizer space
                                                  (ops/cuda/assemble_kernel.py)
       -> masking of the windows past each read's count
+
+    general path:
+      -> (hpc modes) K4 compaction of the kept bases, packed with their
+         positions                               (ops/hpc.py)
+      -> sliding canonical NtHash over the whole rows, density select
+                                                 (ops/nthash.py)
+      -> K4 compaction of (start, end, hash[, hash_hi]) into [B, m]
+                                                 (ops/cuda/masked_compact.py)
+      -> K3, and the same masking
+
+The hash is NtHash1 at width 16, 32 or 64, or the NtHash2-hybrid 31-bit
+variant; the minimizer hashes mix to u64 as murmur (16), xorshift (32,
+nthash2) or the identity (64).
 
 Per-mode conventions (bit-exact with the reference package):
   regular : all windows, hash <= f64 bound, start=i, end=i+l-1
@@ -17,9 +34,10 @@ Per-mode conventions (bit-exact with the reference package):
   hpcsimd : all windows, hash <  f32 bound,
             start=run_start[i], end=run_start[i+l-1]
 
-On CUDA tensors every stage launches its kernel; on CPU tensors every
-stage runs its plain version.  ``kminmer_pipeline_plain`` runs the plain
-versions on any device, as the reference the kernels are held against.
+On CUDA tensors every kernel stage launches its kernel; on CPU tensors
+every stage runs its plain version.  ``kminmer_pipeline_plain`` runs the
+plain versions on any device, as the reference the kernels are held
+against.
 """
 
 from __future__ import annotations
@@ -29,8 +47,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..constants import hash_bound_simd_u32, hash_bound_u32
-from .assemble import assemble_kminmers
+from ..constants import (
+    hash_bound,
+    hash_bound_nthash2_31,
+    hash_bound_simd_u32,
+    hash_bound_u32,
+)
+from .assemble import assemble_plain
+from .compact import compact
 from .cuda.assemble_kernel import assemble_kminmers_cuda
 from .cuda.fused_scan import (
     MAX_L,
@@ -39,7 +63,11 @@ from .cuda.fused_scan import (
     fused_minimizer_scan,
     fused_scan_plain,
 )
+from .cuda.masked_compact import masked_compact
 from .cuda.slot_compact import slot_compact, slot_compact_plain
+from .hpc import hpc_compress
+from .nthash import below_bound, canonical_nthash
+from .u64 import i32_bits
 
 MODES = ("regular", "hpc", "simd", "hpcsimd")
 
@@ -48,10 +76,11 @@ MODES = ("regular", "hpc", "simd", "hpcsimd")
 class PipelineSpec:
     """Static configuration of the pipeline.
 
-    The fields, and the rules for ``bound``, ``strict_threshold``,
-    ``is_hpc`` and ``capacity_for``, mirror the reference package's
-    ``PipelineSpec`` at u32 hashes and NtHash1 (the widths 16/64 and the
-    nthash2 variant are not ported yet).  Its TPU-only fields have no
+    The fields, and the rules for validation, ``bound``,
+    ``strict_threshold``, ``is_hpc`` and ``capacity_for``, mirror the
+    reference package's ``PipelineSpec``: ``hash_width`` is 16, 32 or 64
+    (SIMD modes are u32 only), ``variant`` is "nthash1" or "nthash2" (u32
+    only; 31-bit hashes with halved bounds).  Its TPU-only fields have no
     counterpart: ``compaction`` (the device decides) and ``slots`` /
     ``rows_out`` (per-row and per-block survivor capacities), which the
     single per-tile capacity ``tile_cap`` replaces.
@@ -60,7 +89,8 @@ class PipelineSpec:
     per read (None = derived from the density and length); survivors past
     it are dropped and show in ``KminmerBatch.n_minimizers_raw``.
     ``tile_cap`` is the survivor slots per K1 tile: None derives it from the
-    density, 0 is the lossless maximum (the tile size).
+    density, 0 is the lossless maximum (the tile size).  It has no effect
+    on the general path, whose only capacity is M.
     """
 
     l: int
@@ -69,6 +99,8 @@ class PipelineSpec:
     mode: str = "regular"
     max_minimizers: Optional[int] = None
     tile_cap: Optional[int] = None
+    hash_width: int = 32
+    variant: str = "nthash1"
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -77,6 +109,14 @@ class PipelineSpec:
             raise ValueError("l and k must be >= 1")
         if self.tile_cap is not None and self.tile_cap < 0:
             raise ValueError(f"tile_cap={self.tile_cap} must be >= 0")
+        if self.hash_width not in (16, 32, 64):
+            raise ValueError(f"hash_width must be 16/32/64, got {self.hash_width}")
+        if self.hash_width != 32 and self.mode in ("simd", "hpcsimd"):
+            raise ValueError("SIMD modes require hash_width=32")
+        if self.variant not in ("nthash1", "nthash2"):
+            raise ValueError(f"unknown variant {self.variant!r}")
+        if self.variant == "nthash2" and self.hash_width != 32:
+            raise ValueError("nthash2 variant is 32-bit-lane only")
 
     @property
     def strict_threshold(self) -> bool:
@@ -85,13 +125,24 @@ class PipelineSpec:
 
     @property
     def bound(self) -> int:
+        if self.variant == "nthash2":  # 31-bit hash space: halved bounds
+            if self.strict_threshold:
+                return hash_bound_nthash2_31(self.density)
+            return hash_bound_u32(self.density) // 2
         if self.strict_threshold:
             return hash_bound_simd_u32(self.density)
+        if self.hash_width != 32:
+            return hash_bound(self.density, self.hash_width)
         return hash_bound_u32(self.density)
 
     @property
     def is_hpc(self) -> bool:
         return self.mode in ("hpc", "hpcsimd")
+
+    @property
+    def fused(self) -> bool:
+        """The route: the fused path iff K1's carry covers l."""
+        return 2 <= self.l <= MAX_L
 
     def capacity_for(self, length: int) -> int:
         if self.max_minimizers is not None:
@@ -118,12 +169,23 @@ class KminmerBatch(NamedTuple):
     end: torch.Tensor  # int32[B, Mk]
     rev: torch.Tensor  # bool[B, Mk]
     n_kminmers: torch.Tensor  # int32[B]
-    min_hash: torch.Tensor  # int32[B, M]
-    min_hash_hi: torch.Tensor  # int32[B, M], zeros at u32 hashes
+    min_hash: torch.Tensor  # int32[B, M] (the low words at hash_width 64)
+    min_hash_hi: torch.Tensor  # int32[B, M], zeros unless hash_width 64
     min_start: torch.Tensor  # int32[B, M]
     min_end: torch.Tensor  # int32[B, M]
     n_minimizers: torch.Tensor  # int32[B] (clipped to M)
     n_minimizers_raw: torch.Tensor  # int32[B] (unclipped; > n_minimizers = loss)
+
+
+class _Stages(NamedTuple):
+    scan: object  # K1
+    stitch: object  # K2
+    compact: object  # K4
+    assemble: object  # K3
+
+
+_KERNELS = _Stages(fused_minimizer_scan, slot_compact, masked_compact, assemble_kminmers_cuda)
+_PLAIN = _Stages(fused_scan_plain, slot_compact_plain, compact, assemble_plain)
 
 
 def kminmer_pipeline(
@@ -131,10 +193,7 @@ def kminmer_pipeline(
 ) -> KminmerBatch:
     """codes: uint8[B, L] xcodes (XCODE_PAD past each length), lengths:
     int32[B], both on one device."""
-    return _pipeline(
-        codes, lengths, spec,
-        fused_minimizer_scan, slot_compact, assemble_kminmers_cuda,
-    )
+    return _pipeline(codes, lengths, spec, _KERNELS)
 
 
 def kminmer_pipeline_plain(
@@ -142,24 +201,27 @@ def kminmer_pipeline_plain(
 ) -> KminmerBatch:
     """The same pipeline through the plain version of every stage, on the
     inputs' device."""
-    return _pipeline(
-        codes, lengths, spec,
-        fused_scan_plain, slot_compact_plain, assemble_kminmers,
-    )
+    return _pipeline(codes, lengths, spec, _PLAIN)
 
 
-def _pipeline(codes, lengths, spec, scan, stitch, assemble) -> KminmerBatch:
+def _pipeline(codes, lengths, spec, stages) -> KminmerBatch:
     B, L = codes.shape
-    l, k = spec.l, spec.k
-    if not 2 <= l <= MAX_L:
-        raise ValueError(f"l={l} must be in [2, {MAX_L}]")
-    if L < l + 1:
-        raise ValueError(f"padded length {L} must exceed l={l}")
+    if L < spec.l + 1:
+        raise ValueError(f"padded length {L} must exceed l={spec.l}")
     lengths = lengths.to(torch.int32)
     m_cap = spec.capacity_for(L)
-    if m_cap < k:
-        raise ValueError(f"minimizer capacity {m_cap} < k={k}")
+    if m_cap < spec.k:
+        raise ValueError(f"minimizer capacity {m_cap} < k={spec.k}")
+    route = _fused_minimizers if spec.fused else _general_minimizers
+    min_start, min_end, min_hash, min_hash_hi, n_min, n_raw = route(
+        codes, lengths, spec, stages, m_cap
+    )
+    return _assemble(spec, stages, min_start, min_end, min_hash, min_hash_hi, n_min, n_raw)
 
+
+def _fused_minimizers(codes, lengths, spec, stages, m_cap):
+    """K1 -> K2: the minimizer stream [B, m_cap], zero past the count."""
+    l = spec.l
     # Largest window-start rank per read; no window unless length > l.  In
     # the HPC modes the kept stream itself ends each read, so only the
     # length gate is left.
@@ -169,20 +231,70 @@ def _pipeline(codes, lengths, spec, scan, stitch, assemble) -> KminmerBatch:
     else:
         limit = torch.where(lengths > l, lengths - l, none)
 
-    st, en, hs, counts = scan(
+    st, en, hs, counts = stages.scan(
         codes, lengths, limit, l, spec.bound, spec.strict_threshold,
         spec.is_hpc, spec.mode == "hpc", TILE, spec.cap_per_tile(TILE),
+        spec.hash_width, spec.variant,
     )
     n_raw = counts[:, :, 1].sum(dim=1, dtype=torch.int32)
-    (min_start, min_end, min_hash), n_slotted = stitch(
+    (min_start, min_end, min_hash), n_slotted = stages.stitch(
         st, en, hs, counts[:, :, 0].contiguous(), m_cap
     )
-    n_min = torch.clamp(n_slotted, max=m_cap)
-    (kh_hi, kh_lo), rev = assemble(min_hash, k)
+    min_hash_hi, min_hash = min_hash if isinstance(min_hash, tuple) else (None, min_hash)
+    return min_start, min_end, min_hash, min_hash_hi, torch.clamp(n_slotted, max=m_cap), n_raw
 
-    mk = m_cap - k + 1
+
+def _general_minimizers(codes, lengths, spec, stages, m_cap):
+    """Hash the whole rows, select, and K4-compact: the minimizer stream
+    [B, m_cap], zero past the count."""
+    B, L = codes.shape
+    l = spec.l
+    if spec.is_hpc:
+        hash_input, pos, eff_len = hpc_compress(codes, lengths, stages.compact)
+    else:
+        hash_input, eff_len = codes, lengths
+    h = canonical_nthash(hash_input, l, spec.hash_width, spec.variant)
+    nwin = L - l + 1
+    i = torch.arange(nwin, dtype=torch.int32, device=codes.device)[None, :]
+
+    # Whole-read gate: no window unless the read is longer than l.  The
+    # hpc mode never emits the last HPC window.
+    if spec.mode == "hpc":
+        valid = i < (eff_len - l)[:, None]
+    else:
+        valid = i <= (eff_len - l)[:, None]
+    sel = (lengths > l)[:, None] & valid & below_bound(
+        h, spec.bound, spec.strict_threshold, spec.hash_width
+    )
+
+    if spec.is_hpc:
+        start = pos[:, :nwin]
+        if spec.mode == "hpc":  # first original index after the window, - 1
+            pos_ext = torch.cat([pos, pos.new_full((B, 1), L)], dim=1)
+            end = pos_ext[:, l : l + nwin] - 1
+        else:
+            end = pos[:, l - 1 : l - 1 + nwin]
+    else:
+        start = i.expand(B, nwin)
+        end = start + (l - 1)
+    cols = [start, end, i32_bits(h)]
+    if spec.hash_width == 64:
+        cols.append(i32_bits(h >> 32))
+    cols, n_raw = stages.compact(
+        sel, [c.contiguous() for c in cols], m_cap, [0] * len(cols)
+    )
+    min_hash_hi = cols[3] if spec.hash_width == 64 else None
+    return cols[0], cols[1], cols[2], min_hash_hi, torch.clamp(n_raw, max=m_cap), n_raw
+
+
+def _assemble(spec, stages, min_start, min_end, min_hash, min_hash_hi, n_min, n_raw):
+    """K3 and the masking of the windows past each read's count."""
+    k = spec.k
+    width = spec.hash_width
+    (kh_hi, kh_lo), rev = stages.assemble(min_hash, k, width, min_hash_hi)
+    mk = min_hash.shape[1] - k + 1
     n_km = torch.clamp(n_min - (k - 1), min=0)
-    km_valid = torch.arange(mk, device=codes.device)[None, :] < n_km[:, None]
+    km_valid = torch.arange(mk, device=min_hash.device)[None, :] < n_km[:, None]
     return KminmerBatch(
         hash_hi=torch.where(km_valid, kh_hi, 0),
         hash_lo=torch.where(km_valid, kh_lo, 0),
@@ -191,7 +303,7 @@ def _pipeline(codes, lengths, spec, scan, stitch, assemble) -> KminmerBatch:
         rev=km_valid & rev,
         n_kminmers=n_km,
         min_hash=min_hash,
-        min_hash_hi=torch.zeros_like(min_hash),
+        min_hash_hi=torch.zeros_like(min_hash) if min_hash_hi is None else min_hash_hi,
         min_start=min_start,
         min_end=min_end,
         n_minimizers=n_min,

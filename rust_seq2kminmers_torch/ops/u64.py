@@ -59,9 +59,35 @@ def mix64_from_u32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x << 17)
 
 
+def i64_of_u64(v: int) -> int:
+    """A Python u64 -> the int64 with the same bit pattern."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+_MURMUR_C1 = i64_of_u64(0xFF51AFD7ED558CCD)
+_MURMUR_C2 = i64_of_u64(0xC4CEB9FE1A85EC53)
+
+
+def mix64_murmur_from_u16(x: torch.Tensor) -> torch.Tensor:
+    """Murmur64-style mix of the low 16 bits of x, as u64 bit patterns:
+    x ^= rol64(x, 33); x *= C1; x ^= rol64(x, 33); x *= C2;
+    x ^= rol64(x, 33).  int64 multiplication wraps like u64's."""
+    v = x.to(torch.int64) & 0xFFFF
+    v = v ^ rol64(v, 33)
+    v = v * _MURMUR_C1
+    v = v ^ rol64(v, 33)
+    v = v * _MURMUR_C2
+    return v ^ rol64(v, 33)
+
+
 def split_u64(x: torch.Tensor):
     """u64 bit patterns -> (hi, lo) int32 tensors holding the u32 halves."""
     return i32_bits(x >> 32), i32_bits(x)
+
+
+def join_u64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) u32 bit patterns -> u64 bit patterns in int64."""
+    return (hi.to(torch.int64) << 32) | u32(lo)
 
 
 def to_py_u64(pair) -> np.ndarray:

@@ -28,7 +28,7 @@ DENSITIES = [0.0, 1e-6, 0.0001, 0.001, 0.01, 0.0333, 0.05, 0.1, 0.5, 0.999, 1.0]
         "SEED_TABLE_F", "SEED_TABLE_R", "BYTE_TO_CODE_SCALAR",
         "BYTE_TO_CODE_SIMD", "CODE_A", "CODE_C", "CODE_G", "CODE_T",
         "CODE_N", "CODE_OTHER", "CODE_PAD", "NUM_CODES", "XCODE_KEEP",
-        "XCODE_PAD", "U32_MAX", "MASK32",
+        "XCODE_PAD", "U32_MAX", "MASK32", "U64_MAX",
     ],
 )
 def test_constant_equals_reference(name):
@@ -59,36 +59,77 @@ def test_encoders_equal_reference(family):
     )
 
 
+@pytest.mark.parametrize("hash_width", [16, 32, 64])
+def test_seed_tables_equal_reference(hash_width):
+    for mine, ref in zip(pc.seed_tables(hash_width), jc.seed_tables(hash_width)):
+        np.testing.assert_array_equal(mine, ref)
+        assert mine.dtype == ref.dtype
+    for mine, ref in zip(pc.seed_tables_nthash2_31(), jc.seed_tables_nthash2_31()):
+        np.testing.assert_array_equal(mine, ref)
+        assert mine.dtype == ref.dtype
+    with pytest.raises(ValueError):
+        pc.seed_tables(8)
+
+
 def test_bounds_equal_reference():
     rng = np.random.default_rng(1)
     for d in DENSITIES + list(rng.random(200)):
         assert pc.hash_bound_u32(d) == jc.hash_bound_u32(d)
         assert pc.hash_bound_simd_u32(d) == jc.hash_bound_simd_u32(d)
+        assert pc.hash_bound_nthash2_31(d) == jc.hash_bound_nthash2_31(d)
+        for w in (16, 32, 64):
+            assert pc.hash_bound(d, w) == jc.hash_bound(d, w)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_spec_rules_equal_reference(mode):
+# (hash_width, variant) pairs, with the modes each is valid for.
+WIDTHS = [(32, "nthash1"), (16, "nthash1"), (64, "nthash1"), (32, "nthash2")]
+SPEC_CASES = [
+    pytest.param(mode, w, v, id=mode if (w, v) == WIDTHS[0] else f"{mode}-{w}-{v}")
+    for mode in MODES for w, v in WIDTHS
+    if w == 32 or mode in ("regular", "hpc")
+]
+
+
+@pytest.mark.parametrize("mode,hash_width,variant", SPEC_CASES)
+def test_spec_rules_equal_reference(mode, hash_width, variant):
     for d in DENSITIES:
-        for l in (2, 5, 10, 31, 100, 255):
+        for l in (1, 2, 5, 10, 31, 100, 255, 256, 301):
             for mm in (None, 3, 1000):
-                mine = PipelineSpec(l=l, k=5, density=d, mode=mode, max_minimizers=mm)
-                ref = JaxSpec(l=l, k=5, density=d, mode=mode, max_minimizers=mm)
+                kw = dict(
+                    l=l, k=5, density=d, mode=mode, max_minimizers=mm,
+                    hash_width=hash_width, variant=variant,
+                )
+                mine, ref = PipelineSpec(**kw), JaxSpec(**kw)
                 assert spec_from_jax(ref) == mine
                 assert mine.bound == ref.bound
                 assert mine.strict_threshold == ref.strict_threshold
                 assert mine.is_hpc == ref.is_hpc
+                assert mine.fused == (2 <= l <= 255)
                 for L in (l + 1, 1000, 1 << 20):
                     assert mine.capacity_for(L) == ref.capacity_for(L)
 
 
 def test_spec_from_jax_rejects_unported_widths():
-    with pytest.raises(ValueError):
-        spec_from_jax(JaxSpec(l=11, k=3, density=0.01, hash_width=64))
-    with pytest.raises(ValueError):
-        spec_from_jax(JaxSpec(l=45, k=3, density=0.01, variant="nthash2"))
+    """Every width and variant is ported: spec_from_jax maps them, and the
+    port's spec rejects exactly the combinations the reference rejects."""
+    assert spec_from_jax(JaxSpec(l=11, k=3, density=0.01, hash_width=64)) == (
+        PipelineSpec(l=11, k=3, density=0.01, hash_width=64)
+    )
+    assert spec_from_jax(
+        JaxSpec(l=45, k=3, density=0.01, variant="nthash2")
+    ).variant == "nthash2"
     assert spec_from_jax(
         JaxSpec(l=11, k=3, density=0.01, slots=128, rows_out=0)
     ).tile_cap == 0
+    for bad in (
+        dict(hash_width=8), dict(hash_width=64, mode="simd"),
+        dict(hash_width=16, mode="hpcsimd"), dict(variant="nthash3"),
+        dict(variant="nthash2", hash_width=64),
+    ):
+        with pytest.raises(ValueError):
+            JaxSpec(l=11, k=3, density=0.01, **bad)
+        with pytest.raises(ValueError):
+            PipelineSpec(l=11, k=3, density=0.01, **bad)
 
 
 def test_port_imports_without_jax():
@@ -100,11 +141,12 @@ sys.modules["jax"] = None
 import numpy as np, torch
 import rust_seq2kminmers_torch as p
 from rust_seq2kminmers_torch import convert
-from rust_seq2kminmers_torch.ops.cuda import build, fused_scan, slot_compact, assemble_kernel
+from rust_seq2kminmers_torch.ops.cuda import build, fused_scan, slot_compact, assemble_kernel, masked_compact
 codes = p.constants.with_keep_bits(np.random.default_rng(0).integers(0, 4, (2, 4096)))
-out = p.kminmer_pipeline(torch.from_numpy(codes), torch.tensor([4096, 3000], dtype=torch.int32),
-                         p.PipelineSpec(l=31, k=5, density=0.05, mode="hpcsimd"))
-assert int(out.n_kminmers.sum()) > 0
+for spec in (p.PipelineSpec(l=31, k=5, density=0.05, mode="hpcsimd"),
+             p.PipelineSpec(l=301, k=5, density=0.05, mode="hpc", hash_width=64)):
+    out = p.kminmer_pipeline(torch.from_numpy(codes), torch.tensor([4096, 3000], dtype=torch.int32), spec)
+    assert int(out.n_kminmers.sum()) > 0
 assert len(p.kminmers_list("ACGT" * 100, 10, 3, 0.2, "hpc", device="cpu")) > 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rust_seq2kminmers_tpu")]
 assert bad == ["jax"] and sys.modules["jax"] is None, bad

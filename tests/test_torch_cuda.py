@@ -18,7 +18,8 @@ import torch
 
 from rust_seq2kminmers_torch import kminmers_list
 from rust_seq2kminmers_torch.constants import XCODE_PAD, with_keep_bits
-from rust_seq2kminmers_torch.ops.assemble import assemble_kminmers
+from rust_seq2kminmers_torch.ops.assemble import assemble_kminmers, assemble_plain
+from rust_seq2kminmers_torch.ops.compact import compact
 from rust_seq2kminmers_torch.ops.cuda import build
 from rust_seq2kminmers_torch.ops.cuda.assemble_kernel import assemble_kminmers_cuda
 from rust_seq2kminmers_torch.ops.cuda.fused_scan import (
@@ -26,6 +27,8 @@ from rust_seq2kminmers_torch.ops.cuda.fused_scan import (
     fused_scan_plain,
     valid_slots,
 )
+from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
+from rust_seq2kminmers_torch.ops.hpc import hpc_compress
 from rust_seq2kminmers_torch.ops.cuda.slot_compact import (
     slot_compact,
     slot_compact_plain,
@@ -40,6 +43,7 @@ pytestmark = pytest.mark.cuda
 
 FIXTURE = Path(__file__).parent / "data" / "ecoli.genome.100k.fa"
 GOLDENS = Path(__file__).parent / "data" / "goldens_u32.json"
+GOLDENS_U64 = Path(__file__).parent / "data" / "goldens_u64.json"
 
 
 @pytest.fixture
@@ -71,6 +75,12 @@ def _scan_args(spec, lengths):
         limit.to(torch.int32), spec.l, spec.bound, spec.strict_threshold,
         spec.is_hpc, spec.mode == "hpc",
     )
+
+
+def _hash_cols(rows):
+    """(start, end, hash) with the hash's (hi, lo) pair flattened."""
+    st, en, hs = rows
+    return [st, en, *(hs if isinstance(hs, tuple) else (hs,))]
 
 
 @pytest.mark.parametrize("mode", ["regular", "simd", "hpc", "hpcsimd"])
@@ -135,10 +145,18 @@ def test_assemble_kernel(cuda, k, M):
     assert torch.equal(hi, whi) and torch.equal(lo, wlo) and torch.equal(rev, wrev)
 
 
-@pytest.mark.parametrize("mode", ["regular", "simd", "hpc", "hpcsimd"])
-def test_pipeline_kernels_match_plain(cuda, mode):
+@pytest.mark.parametrize(
+    "mode,hash_width,variant",
+    [("regular", 32, "nthash1"), ("simd", 32, "nthash1"), ("hpc", 32, "nthash1"),
+     ("hpcsimd", 32, "nthash1"), ("regular", 64, "nthash1"), ("hpc", 16, "nthash1"),
+     ("hpcsimd", 32, "nthash2")],
+    ids=["regular", "simd", "hpc", "hpcsimd", "regular-64", "hpc-16", "hpcsimd-nthash2"],
+)
+def test_pipeline_kernels_match_plain(cuda, mode, hash_width, variant):
     codes, lengths = _batch(9, B=4, L=1 << 17, runs=True)
-    spec = PipelineSpec(l=31, k=5, density=0.01, mode=mode)
+    spec = PipelineSpec(
+        l=31, k=5, density=0.01, mode=mode, hash_width=hash_width, variant=variant
+    )
     codes, lengths = codes.to(cuda), lengths.to(cuda)
     before = dict(build.launches)
     got = kminmer_pipeline(codes, lengths, spec)
@@ -146,15 +164,139 @@ def test_pipeline_kernels_match_plain(cuda, mode):
     torch.cuda.synchronize()
     for name in ("fused_scan", "slot_compact", "assemble"):
         assert build.launches[name] == before.get(name, 0) + 1, name
+    assert build.launches["masked_compact"] == before.get("masked_compact", 0)
     for name, g, w in zip(got._fields, got, want):
         assert torch.equal(g, w), name
 
 
-def test_goldens_on_card(cuda):
-    g = json.loads(GOLDENS.read_text())
+@pytest.mark.parametrize("path", [GOLDENS, GOLDENS_U64], ids=["u32", "u64"])
+def test_goldens_on_card(cuda, path):
+    g = json.loads(path.read_text())
     seq = FIXTURE.read_text().split("\n")[1]
-    recs = kminmers_list(seq, g["l"], g["k"], g["density"], g["mode"], device=cuda)
+    recs = kminmers_list(
+        seq, g["l"], g["k"], g["density"], g["mode"], device=cuda,
+        hash_width=g["hash_width"],
+    )
     assert [r.hash for r in recs] == g["hashes"]
+
+
+@pytest.mark.parametrize(
+    "mode,hash_width,variant",
+    [("regular", 16, "nthash1"), ("hpc", 16, "nthash1"), ("regular", 64, "nthash1"),
+     ("hpc", 64, "nthash1"), ("simd", 32, "nthash2"), ("hpcsimd", 32, "nthash2"),
+     ("hpc", 32, "nthash2")],
+)
+@pytest.mark.parametrize("l", [2, 31, 255])
+def test_fused_scan_kernel_widths(cuda, mode, hash_width, variant, l):
+    codes, lengths = _batch(l + hash_width, B=5, L=20000, runs=True)
+    spec = PipelineSpec(
+        l=l, k=3, density=0.05, mode=mode, hash_width=hash_width, variant=variant
+    )
+    args = (codes.to(cuda), lengths.to(cuda), *_scan_args(spec, lengths.to(cuda)))
+    for tile, cap in ((4096, 4096), (3000, 64)):
+        got = fused_minimizer_scan(*args, tile, cap, hash_width, variant)
+        want = fused_scan_plain(*args, tile, cap, hash_width, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got[3], want[3])
+        assert isinstance(got[2], tuple) == (hash_width == 64)
+        for g, w in zip(_hash_cols(got[:3]), _hash_cols(want[:3])):
+            assert torch.equal(valid_slots(g, got[3]), w)
+
+
+def test_slot_compact_kernel_hash_hi(cuda):
+    codes, lengths = _batch(5, B=4, L=50000)
+    spec = PipelineSpec(l=11, k=3, density=0.05, mode="hpc", hash_width=64)
+    args = (codes.to(cuda), lengths.to(cuda), *_scan_args(spec, lengths.to(cuda)))
+    st, en, hs, counts = fused_minimizer_scan(*args, 2048, 256, 64)
+    kept = counts[:, :, 0].contiguous()
+    for m in (1, 500, 100000):
+        got = slot_compact(st, en, hs, kept, m)
+        want = slot_compact_plain(st, en, hs, kept, m)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        for g, w in zip(_hash_cols(got[0]), _hash_cols(want[0])):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("hash_width", [16, 32, 64])
+@pytest.mark.parametrize("k", [1, 5, 70])
+def test_assemble_kernel_mixes(cuda, hash_width, k):
+    rng = np.random.default_rng(k + hash_width)
+    h = rng.integers(0, 2**32, size=(2, 2, 5000), dtype=np.uint64).astype(np.uint32)
+    h[:, :, ::3] = 2**32 - 1 - h[:, :, ::3] % 1000
+    lo, hi = (torch.from_numpy(x.view(np.int32)).to(cuda) for x in h)
+    hi = hi if hash_width == 64 else None
+    (ghi, glo), grev = assemble_kminmers_cuda(lo, k, hash_width, hi)
+    (whi, wlo), wrev = assemble_plain(lo, k, hash_width, hi)
+    torch.cuda.synchronize()
+    assert torch.equal(ghi, whi) and torch.equal(glo, wlo) and torch.equal(grev, wrev)
+
+
+@pytest.mark.parametrize(
+    "B,N,m,density",
+    [(3, 100000, 100000, 0.0), (3, 100000, 100000, 1.0), (3, 100000, 1, 0.5),
+     (2, 1, 1, 1.0), (2, 1, 5, 0.0), (0, 1000, 10, 0.5), (2, 0, 3, 0.5),
+     (4, 70001, 700, 0.01), (4, 70001, 50000, 0.6)],
+)
+def test_masked_compact_kernel(cuda, B, N, m, density):
+    """All-false, all-true, m = 1, N = 1, B = 0, N = 0, overflow past m,
+    several tiles a row; int32 and uint8 columns, bit for bit with the
+    plain version, fills included."""
+    rng = np.random.default_rng(N + m)
+    mask = torch.from_numpy(rng.random((B, N)) < density).to(cuda)
+    cols = [
+        torch.from_numpy(rng.integers(-(2**31), 2**31, (B, N), dtype=np.int64))
+        .to(torch.int32).to(cuda),
+        torch.from_numpy(rng.integers(0, 256, (B, N), dtype=np.uint8)).to(cuda),
+        torch.arange(N, dtype=torch.int32, device=cuda).expand(B, N).contiguous(),
+    ]
+    fills = [-5, 250, N]
+    before = build.launches["masked_compact"]
+    got, n = masked_compact(mask, cols, m, fills)
+    want, wn = compact(mask, cols, m, fills)
+    torch.cuda.synchronize()
+    assert build.launches["masked_compact"] == before + (B > 0)
+    assert torch.equal(n, wn)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_hpc_compress_kernel(cuda):
+    codes, lengths = _batch(6, B=4, L=1 << 17, runs=True)
+    codes, lengths = codes.to(cuda), lengths.to(cuda)
+    got = hpc_compress(codes, lengths)
+    want = hpc_compress(codes, lengths, compact)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "mode,l,hash_width,variant",
+    [("regular", 1, 32, "nthash1"), ("hpc", 1, 16, "nthash1"),
+     ("hpcsimd", 301, 32, "nthash2"), ("hpc", 256, 64, "nthash1"),
+     ("simd", 300, 32, "nthash2"), ("regular", 400, 64, "nthash1")],
+)
+def test_general_pipeline_kernels_match_plain(cuda, mode, l, hash_width, variant):
+    """The general path launches K4 (twice in the hpc modes) and K3, never
+    K1 or K2, and equals the plain pipeline in all 12 fields."""
+    codes, lengths = _batch(l, B=4, L=1 << 16, runs=True)
+    spec = PipelineSpec(
+        l=l, k=5, density=0.3 if l == 1 else 0.01, mode=mode,
+        hash_width=hash_width, variant=variant,
+    )
+    codes, lengths = codes.to(cuda), lengths.to(cuda)
+    before = dict(build.launches)
+    got = kminmer_pipeline(codes, lengths, spec)
+    want = kminmer_pipeline_plain(codes, lengths, spec)
+    torch.cuda.synchronize()
+    ran = {name: build.launches[name] - before.get(name, 0) for name in build.launches}
+    assert ran.get("masked_compact") == (2 if spec.is_hpc else 1)
+    assert ran.get("assemble") == 1
+    assert not ran.get("fused_scan") and not ran.get("slot_compact")
+    assert int(got.n_kminmers.sum()) > 0
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
 
 
 def test_wrappers_reject_bad_tensors(cuda):
@@ -168,3 +310,7 @@ def test_wrappers_reject_bad_tensors(cuda):
         fused_minimizer_scan(codes, lengths.cpu(), limit, 11, 1, True, False, False)
     with pytest.raises(TypeError):
         assemble_kminmers_cuda(codes.to(torch.int64), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        masked_compact(codes[:, ::2] > 3, [codes.to(torch.int32)[:, ::2]], 10, [0])
+    with pytest.raises(ValueError, match="device"):
+        masked_compact(codes > 3, [codes.cpu()], 10, [0])
