@@ -3,16 +3,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through its user entry points, on [32, 1 Mbp]
-xcode batches made from a numpy seed, after building the CUDA kernels from
-``rust_seq2kminmers_torch/csrc``:
+Drives the port's paths through its user entry points, on data made from
+a numpy seed, after building the CUDA kernels from
+``rust_seq2kminmers_torch/csrc``.  Three batch paths on [32, 1 Mbp]:
 
   - the main path: mode hpcsimd, l=31, k=5, d=0.01, u32 hashes; the fused
     route K1 -> K2 -> K3;
   - the general path: hpcsimd, nthash2, l=301, k=5, d=0.01; the route for
     l = 1 or l > 255, K4 (HPC and minimizer compactions) -> K3;
   - the u64 path: regular, hash_width=64, l=31, k=5, d=0.01; K1 -> K2 -> K3
-    at width 64.
+    at width 64;
+
+then the long-read path (one 300 Mbp random-ACGT read through
+``kminmers_long``: K1 with its carry chunk by chunk -> K2 -> K3) and the
+profiling script (``rust_seq2kminmers_torch/scripts/prof_mxu_compact.py``:
+K5 and K6).
 
 In order, and any failure raises (exit code != 0):
 
@@ -32,7 +37,22 @@ In order, and any failure raises (exit code != 0):
      its kernels (and the general path never K1), and all 12 KminmerBatch
      fields must equal the plain pipeline's on the card;
   6. times each path and each kernel with CUDA events, beside the plain
-     versions.
+     versions;
+  7. checks K1 with a carry bit for bit against its plain version: chunk 2
+     of [4, 2 x 4 Mbp] reads from the carry the kernel gave on chunk 1, for
+     u32 hpcsimd l=31, u64 regular l=31 and nthash2 hpc l=201;
+  8. checks K5 and K6 bit for bit against their plain version at
+     [512, 128] and [262144, 128], 1 and 4 payloads;
+  9. runs the profiling script with the counters at zero: it checks K5 and
+     K6 against numpy and times them;
+ 10. runs the long-read path with the counters at zero (hpcsimd, l=31,
+     k=5, d=0.01, chunk 2^25) and checks it: the same records at chunk
+     2^23; on a 64 Mbp prefix, the same records as ``kminmers_batch`` on
+     one [1, 2^26] row; two 150 Mbp reads batched equal their own runs.
+     Prints the wall time, its GB/s and K1's time per chunk.  Then holds
+     the long read's kernels bit for bit against their plain versions at
+     its shapes: K1 with a carry (carry-out included) and K2 on a
+     [1, 2^25] chunk, K3 on the read's whole [1, M] minimizer stream.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.
@@ -41,6 +61,7 @@ last is ``{"ok": true, "device": {...}}``.
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -63,7 +84,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "rust_seq2kminmers_torch/csrc/masked_compact.cu",
         "rust_seq2kminmers_tpu/ops/pallas/compact_kernel.py:125",
     ),
+    "inrow_compact_ballot": (
+        "rust_seq2kminmers_torch/csrc/inrow_compact.cu",
+        "scripts/prof_mxu_compact.py:63",
+    ),
+    "inrow_compact_mma": (
+        "rust_seq2kminmers_torch/csrc/inrow_compact.cu",
+        "scripts/prof_mxu_compact.py:91",
+    ),
 }
+N_LONG = 300_000_000  # the reference's own long-read size (LONGREAD_r05.json)
 
 
 def check(ok, msg):
@@ -80,7 +110,7 @@ def main():
     import numpy as np
     import torch
 
-    from rust_seq2kminmers_torch import kminmers_list
+    from rust_seq2kminmers_torch import kminmers_list, kminmers_long, kminmers_long_batch
     from rust_seq2kminmers_torch.api import kminmers_batch
     from rust_seq2kminmers_torch.constants import CODE_PAD, with_keep_bits
     from rust_seq2kminmers_torch.ops.assemble import assemble_plain
@@ -95,17 +125,24 @@ def main():
         fused_scan_plain,
         valid_slots,
     )
+    from rust_seq2kminmers_torch.ops.cuda.inrow_compact import (
+        inrow_compact_ballot,
+        inrow_compact_mma,
+        inrow_compact_plain,
+    )
     from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
     from rust_seq2kminmers_torch.ops.cuda.slot_compact import (
         slot_compact,
         slot_compact_plain,
     )
     from rust_seq2kminmers_torch.ops.hpc import hpc_keep_mask
+    from rust_seq2kminmers_torch.ops.long_read import minimizer_stream_long
     from rust_seq2kminmers_torch.ops.pipeline import (
         PipelineSpec,
         kminmer_pipeline,
         kminmer_pipeline_plain,
     )
+    from rust_seq2kminmers_torch.scripts import prof_mxu_compact as prof
 
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -348,7 +385,7 @@ def main():
         "assemble": time_ms(lambda i: assemble_plain(min_hash, spec.k), 10),
         "masked_compact": time_ms(lambda i: compact(*hpc_args), 5, 1),
     }
-    for name in KERNELS:
+    for name in ms:
         log(f"{name} on {card}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms")
     extra = {
         "masked_compact (b) 3 columns, 1% mask": (
@@ -370,6 +407,180 @@ def main():
     for what, (kern, plain) in extra.items():
         log(f"{what} on {card}: kernel {time_ms(kern, 20):.4f} ms, "
             f"plain {time_ms(plain, 3, 1):.4f} ms")
+
+    # 7. K1 with a carry: chunk 2 of each read from the kernel's chunk-1 carry
+    C = 1 << 22
+    rng = np.random.default_rng(SEED + 1)
+    two = torch.from_numpy(with_keep_bits(rng.integers(0, 4, (4, 2 * C), dtype=np.uint8)))
+    chunk1, chunk2 = (two[:, i * C : (i + 1) * C].contiguous().to(dev) for i in (0, 1))
+    clen = torch.full((4,), C, dtype=torch.int32, device=dev)
+    carry_specs = {
+        "u32 hpcsimd l=31": PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd"),
+        "u64 regular l=31": PipelineSpec(l=31, k=5, density=0.01, mode="regular",
+                                         hash_width=64),
+        "nthash2 hpc l=201": PipelineSpec(l=201, k=5, density=0.01, mode="hpc",
+                                          variant="nthash2"),
+    }
+    for what, cs in carry_specs.items():
+        lim = torch.full_like(clen, (1 << 31) - 1 if cs.is_hpc else 2 * C - cs.l)
+        sargs = (cs.l, cs.bound, cs.strict_threshold, cs.is_hpc, cs.mode == "hpc",
+                 TILE, cs.cap_per_tile(TILE), cs.hash_width, cs.variant)
+        first = fused_minimizer_scan(chunk1, clen, lim, *sargs, emit_carry=True)
+        base = first[3][:, :, 2].sum(dim=1, dtype=torch.int32)
+        carry = first[4] - (C << 3)
+        got = fused_minimizer_scan(chunk2, clen, lim, *sargs, base0=base, carry0=carry,
+                                   emit_carry=True)
+        want = fused_scan_plain(chunk2, clen, lim, *sargs, base, carry, True)
+        record("fused_scan", f"carry, chunk 2 of [4, 2 x {C}], {what}", max_abs_err(
+            [valid_slots(t, got[3]) for t in flat(got[:3])] + [got[3], got[4]],
+            flat(want[:3]) + [want[3], want[4]]))
+        check(int(got[3][:, :, 1].sum()) > 0, f"K1 with carry {what} selected nothing")
+        with_carry = time_ms(lambda i: fused_minimizer_scan(
+            chunk2, clen, lim, *sargs, base0=base, carry0=carry, emit_carry=True), 10)
+        fresh = time_ms(lambda i: fused_minimizer_scan(chunk2, clen, lim, *sargs), 10)
+        log(f"fused_scan [4, {C}] {what} on {card}: with carry {with_carry:.4f} ms, "
+            f"without {fresh:.4f} ms")
+
+    # 8. K5 and K6 against their plain version, at the script's two shapes
+    tile = prof.tile_inputs()
+    for rows in (prof.R, prof.BIG_R):
+        for npay in prof.PAYLOADS:
+            if rows == prof.R:
+                xs = [torch.from_numpy(x).to(dev) for x in tile[npay][0]]
+                keep_f = torch.from_numpy(tile[npay][1]).to(dev)
+            else:
+                xs, keep_f = prof.big_inputs(npay, dev)
+            want = inrow_compact_plain(xs, keep_f)
+            for name, fn in (("inrow_compact_ballot", inrow_compact_ballot),
+                             ("inrow_compact_mma", inrow_compact_mma)):
+                got = fn(xs, keep_f)
+                check(prof.bits_equal(got, want), f"{name} bits [{rows}, 128] x {npay}")
+                record(name, f"[{rows}, 128] x {npay} payload(s)", max_abs_err(got, want))
+            del xs, keep_f, want
+
+    # 9. the profiling script, counters at 0 just before
+    build.launches.clear()
+    prof_rows = prof.run(dev)
+    torch.cuda.synchronize()
+    for name in ("inrow_compact_ballot", "inrow_compact_mma"):
+        check(build.launches[name] > 0, f"the profiling script never launched {name}")
+        launches[name] += build.launches[name]
+    log(f"profiling script launches: {dict(build.launches)}")
+    for r in prof_rows:
+        log(f"in-row compaction [{r['rows']}, 128] x {r['payloads']} on {card}: "
+            f"K5 ballot {r['ballot_ms']:.4f} ms, K6 mma {r['mma_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms")
+    big4 = next(r for r in prof_rows if r["rows"] == prof.BIG_R and r["payloads"] == 4)
+    for name, key in (("inrow_compact_ballot", "ballot_ms"), ("inrow_compact_mma", "mma_ms")):
+        ms[name], plain_ms[name] = big4[key], big4["plain_ms"]
+
+    # 10. the long-read path, counters at 0 just before
+    rng = np.random.default_rng(SEED + 2)
+    seq = rng.integers(0, 4, N_LONG, dtype=np.uint8)
+    keep_bit = np.empty(N_LONG, dtype=bool)
+    keep_bit[0] = True
+    np.not_equal(seq[1:], seq[:-1], out=keep_bit[1:])
+    seq |= keep_bit.view(np.uint8) << 3
+    del keep_bit
+    lr = dict(l=31, k=5, density=0.01, mode="hpcsimd")
+    build.launches.clear()
+    t0 = time.perf_counter()
+    recs = kminmers_long(seq, chunk=1 << 25, device=dev, **lr)
+    wall = time.perf_counter() - t0
+    ran = {name: build.launches[name] for name in KERNELS}
+    log(f"long-read path launches: {ran}")
+    for name in ("fused_scan", "slot_compact", "assemble"):
+        check(ran[name] > 0, f"the long-read path never launched {name}")
+        launches[name] += ran[name]
+    n_rec = len(recs["hash"])
+    check(n_rec > N_LONG * 0.01 * 0.5, f"long read: only {n_rec} k-min-mers")
+    check(recs["hash"].dtype == np.uint64 and recs["rev"].dtype == bool, "record dtypes")
+    check(all(len(v) == n_rec for v in recs.values()), "record lengths")
+    check(bool((np.diff(recs["start"]) > 0).all()) and int(recs["end"][-1]) < N_LONG,
+          "long-read positions are not increasing within the read")
+    log(f"long read {N_LONG} bases hpcsimd l=31 chunk 2^25 on {card}: {n_rec} k-min-mers "
+        f"in {wall:.4f} s wall = {N_LONG / wall / 1e9:.4f} GB/s (host clock, staging and "
+        "transfers included)")
+
+    def same(a, b, what):
+        for key in a:
+            check(a[key].dtype == b[key].dtype and np.array_equal(a[key], b[key]),
+                  f"{what}: field {key} differs")
+
+    t0 = time.perf_counter()
+    same(recs, kminmers_long(seq, chunk=1 << 23, device=dev, **lr), "chunk 2^23 vs 2^25")
+    log(f"long read: chunk 2^23 gives the same {n_rec} records "
+        f"({time.perf_counter() - t0:.4f} s wall)")
+    P = 1 << 26
+    prefix = kminmers_long(seq[:P], chunk=1 << 25, device=dev, **lr)
+    out = kminmers_batch(
+        torch.from_numpy(seq[None, :P].copy()).to(dev),
+        torch.tensor([P], dtype=torch.int32, device=dev),
+        PipelineSpec(**lr),
+    )
+    nk = int(out.n_kminmers[0])
+    hi, lo = (t[0, :nk].cpu().numpy().view(np.uint32).astype(np.uint64)
+              for t in (out.hash_hi, out.hash_lo))
+    same(prefix, {
+        "hash": (hi << np.uint64(32)) | lo,
+        "start": out.start[0, :nk].cpu().numpy().astype(np.int64),
+        "end": out.end[0, :nk].cpu().numpy().astype(np.int64),
+        "offset": np.arange(nk, dtype=np.int64),
+        "rev": out.rev[0, :nk].cpu().numpy(),
+    }, "64 Mbp prefix vs kminmers_batch")
+    log(f"long read: the 64 Mbp prefix gives the same {nk} records as kminmers_batch "
+        "on one [1, 2^26] row")
+    half = N_LONG // 2
+    halves = [seq[:half], seq[half:].copy()]
+    halves[1][0] |= 8  # a read's first base is always kept
+    t0 = time.perf_counter()
+    batch = kminmers_long_batch(halves, chunk=1 << 25, device=dev, **lr)
+    batch_wall = time.perf_counter() - t0
+    for i, h in enumerate(halves):
+        same(batch[i], kminmers_long(h, chunk=1 << 25, device=dev, **lr),
+             f"batched read {i} vs its own run")
+    log(f"long read: 2 x {half} bases batched equal their own runs; batch "
+        f"{batch_wall:.4f} s wall = {N_LONG / batch_wall / 1e9:.4f} GB/s")
+    one = torch.from_numpy(seq[None, : 2 << 25].copy()).to(dev)
+    full = torch.full((1,), 1 << 25, dtype=torch.int32, device=dev)
+    hpc_lim = torch.full_like(full, (1 << 31) - 1)
+    lspec = PipelineSpec(**lr)
+    largs = (lspec.l, lspec.bound, True, True, False, TILE, lspec.cap_per_tile(TILE))
+    first = fused_minimizer_scan(one[:, : 1 << 25].contiguous(), full, hpc_lim, *largs,
+                                 emit_carry=True)
+    base = first[3][:, :, 2].sum(dim=1, dtype=torch.int32)
+    carry = first[4] - ((1 << 25) << 3)
+    second = one[:, 1 << 25 :].contiguous()
+    k1_chunk = time_ms(lambda i: fused_minimizer_scan(
+        second, full, hpc_lim, *largs, base0=base, carry0=carry, emit_carry=True), 3, 1)
+    log(f"long read: K1 per 2^25-base chunk (with carry) on {card}: {k1_chunk:.4f} ms; "
+        f"{-(-N_LONG // (1 << 25))} chunks = {k1_chunk * -(-N_LONG // (1 << 25)) / 1e3:.4f} s "
+        "of K1 on one SM")
+
+    # The long read's kernels against their plain versions, at its shapes:
+    # K1 with a carry and K2 on a [1, 2^25] chunk, K3 on the read's whole
+    # [1, M] minimizer stream.
+    got = fused_minimizer_scan(second, full, hpc_lim, *largs, base0=base, carry0=carry,
+                               emit_carry=True)
+    want = fused_scan_plain(second, full, hpc_lim, *largs, 32, "nthash1", base, carry, True)
+    record("fused_scan", "long read: chunk 2 of [1, 2^25] with carry", max_abs_err(
+        [valid_slots(t, got[3]) for t in got[:3]] + [got[3], got[4]], [*want]))
+    del want
+    lm_cap = lspec.capacity_for(1 << 25)
+    kept_l = got[3][:, :, 0].contiguous()
+    got2 = slot_compact(*got[:3], kept_l, lm_cap)
+    want2 = slot_compact_plain(*got[:3], kept_l, lm_cap)
+    record("slot_compact", f"long read: chunk 2 of [1, 2^25] into m = {lm_cap}",
+           max_abs_err([*got2[0], got2[1]], [*want2[0], want2[1]]))
+    check(int(got2[1][0]) > 0, "the long-read chunk kept no minimizer")
+    mh = minimizer_stream_long(seq, lspec, chunk=1 << 25, device=dev)[2]
+    check(mh.shape[0] - (lspec.k - 1) == n_rec, "long-read stream length")
+    mh_d = torch.from_numpy(mh.view(np.int32)[None, :].copy()).to(dev)
+    got3 = assemble_kminmers_cuda(mh_d, lspec.k)
+    want3 = assemble_plain(mh_d, lspec.k)
+    record("assemble", f"long read: [1, {mh.shape[0]}] minimizer hashes",
+           max_abs_err([*got3[0], got3[1]], [*want3[0], want3[1]]))
+    del got, got2, want2, got3, want3, mh_d
 
     print(json.dumps({"kernels": [
         {

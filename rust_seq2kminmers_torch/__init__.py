@@ -8,6 +8,7 @@ neither jax nor the reference package.  CUDA tensors run the kernels in
 """
 
 from .api import KminmerRecord, KminmersIterator, KSizeTooBig, kminmers_list
+from .ops.long_read import kminmers_long, kminmers_long_batch
 from .ops.pipeline import KminmerBatch, PipelineSpec, kminmer_pipeline
 
 __all__ = [
@@ -18,4 +19,6 @@ __all__ = [
     "PipelineSpec",
     "kminmer_pipeline",
     "kminmers_list",
+    "kminmers_long",
+    "kminmers_long_batch",
 ]

@@ -10,8 +10,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .ops.pipeline import KminmerBatch, PipelineSpec
+
+# The reference's K1 carry: 8 rows of 128 lanes per read, the last l
+# elements right-aligned at flat indices [1024 - l, 1024).
+_JAX_PEND = (8, 128)
 
 
 def spec_from_jax(jax_spec) -> PipelineSpec:
@@ -43,3 +48,28 @@ def batch_to_numpy(batch: KminmerBatch) -> KminmerBatch:
             a = a.view(np.uint32)
         out[name] = a
     return KminmerBatch(**out)
+
+
+def carry_from_jax(base0, pend0, l: int):
+    """The reference's K1 carry (``base0`` int32[B], ``pend0`` int32[B, 8,
+    128]) -> the port's (base int32[B], carry int32[B, l]) CPU tensors.
+    Both pack each element as (pos << 3) | code."""
+    pend = np.asarray(pend0, dtype=np.int32)
+    B = pend.shape[0]
+    flat = pend.reshape(B, _JAX_PEND[0] * _JAX_PEND[1])
+    return (
+        torch.from_numpy(np.asarray(base0, dtype=np.int32).copy()),
+        torch.from_numpy(np.ascontiguousarray(flat[:, flat.shape[1] - l :])),
+    )
+
+
+def carry_to_jax(base, carry):
+    """The port's (base int32[B], carry int32[B, l]) -> the reference's
+    (base0 int32[B], pend0 int32[B, 8, 128]), zero before the carry: the
+    reference resumes a read from the port's carry with it."""
+    c = carry.detach().cpu().numpy().astype(np.int32)
+    B, l = c.shape
+    n = _JAX_PEND[0] * _JAX_PEND[1]
+    pend = np.zeros((B, n), dtype=np.int32)
+    pend[:, n - l :] = c
+    return base.detach().cpu().numpy().astype(np.int32), pend.reshape(B, *_JAX_PEND)

@@ -23,6 +23,19 @@
 // homopolymer run) costs nothing extra.  Filling the card needs a count ->
 // scan -> splice pass or decoupled look-back over tiles: later work.
 //
+// Carry (a long read scanned chunk by chunk, ops/long_read.py): base0[b] is
+// the global kept rank before this launch, carry_in[b] the last l stream
+// elements before it, right-aligned and packed (pos << 3) | code with
+// chunk-relative (so negative) positions; only the last min(base0, l) are
+// real, and every window that touches the others has a start rank < 0 and
+// is masked.  After the last tile the buffer's last l elements go to
+// carry_out[b] in the same packing; the caller rebases their positions.
+// Both are null for a fresh read.  The buffer keeps positions only, as the
+// scan needs: a carried-out element of this chunk takes its code from the
+// row again, and one that passed through from an earlier chunk (this chunk
+// kept fewer than l elements) is copied from carry_in.  So the scan loop
+// is the same with or without a carry.
+//
 // Output contract (kept from the TPU so that a parallel K1 can reuse K2):
 // the survivors whose window's emitting element lies in tile t (its last
 // element, or its one-past-last element in hpc mode) are left-packed into
@@ -77,9 +90,10 @@ __global__ void __launch_bounds__(NT) fused_scan_kernel(
     const int32_t* __restrict__ limits,
     const typename H::T* __restrict__ seeds, int32_t* __restrict__ out_start,
     int32_t* __restrict__ out_end, int32_t* __restrict__ out_hash,
-    int32_t* __restrict__ out_hash_hi, int32_t* __restrict__ counts, int L,
-    int l, typename H::T bound, int strict, int do_hpc, int hpc_end,
-    int tile, int cap, int nt) {
+    int32_t* __restrict__ out_hash_hi, int32_t* __restrict__ counts,
+    const int32_t* __restrict__ base0, const int32_t* __restrict__ carry_in,
+    int32_t* __restrict__ carry_out, int L, int l, typename H::T bound,
+    int strict, int do_hpc, int hpc_end, int tile, int cap, int nt) {
   using T = typename H::T;
   // Stream buffer: [0, l) holds the carry (the l kept elements before this
   // step, right-aligned), [l, l + cnt) the elements kept in this step.
@@ -95,7 +109,18 @@ __global__ void __launch_bounds__(NT) fused_scan_kernel(
   const uint8_t* row = codes + (size_t)b * L;
   const int length = lengths[b];
   const int limit = limits[b];
-  int base = 0;  // global kept rank of buffer index l
+  const int base_in = base0 ? base0[b] : 0;
+  int base = base_in;  // global kept rank of buffer index l
+  if (carry_in && tid < l) {
+    const int32_t p = carry_in[(size_t)b * l + tid];
+    const int r = base - l + tid;  // < 0: not a real element, never read
+    if (r >= 0) {
+      s_af[tid] = H::rol(s_seed[p & 7], H::neg((uint32_t)r));
+      s_ar[tid] = H::rol(s_seed[8 + (p & 7)], (uint32_t)r);
+    }
+    s_pos[tid] = p >> 3;  // arithmetic: carried positions are negative
+  }
+  __syncthreads();
 
   for (int t = 0; t < nt; ++t) {
     const size_t obase = ((size_t)b * nt + t) * cap;
@@ -179,32 +204,48 @@ __global__ void __launch_bounds__(NT) fused_scan_kernel(
       c[2] = tile_stream;
     }
   }
+  if (carry_out && tid < l) {
+    const int n = base - base_in;  // elements kept in this launch
+    int32_t p = 0;  // an element before the read's start: never real
+    if (n + tid < l) {
+      if (carry_in) p = carry_in[(size_t)b * l + n + tid];
+    } else {
+      const int pos = s_pos[tid];
+      p = (pos << 3) | (int)(row[pos] & 7u);
+    }
+    carry_out[(size_t)b * l + tid] = p;
+  }
 }
 
 template <typename H>
 void launch(const void* codes, const void* lengths, const void* limits,
             const void* seeds, void* out_start, void* out_end,
-            void* out_hash, void* out_hash_hi, void* counts, int B, int L,
-            int l, uint64_t bound, int strict, int do_hpc, int hpc_end,
+            void* out_hash, void* out_hash_hi, void* counts,
+            const void* base0, const void* carry_in, void* carry_out, int B,
+            int L, int l, uint64_t bound, int strict, int do_hpc, int hpc_end,
             int tile, int cap, int nt, cudaStream_t stream) {
   using T = typename H::T;
   fused_scan_kernel<H><<<B, NT, 0, stream>>>(
       (const uint8_t*)codes, (const int32_t*)lengths, (const int32_t*)limits,
       (const T*)seeds, (int32_t*)out_start, (int32_t*)out_end,
-      (int32_t*)out_hash, (int32_t*)out_hash_hi, (int32_t*)counts, L, l,
-      (T)bound, strict, do_hpc, hpc_end, tile, cap, nt);
+      (int32_t*)out_hash, (int32_t*)out_hash_hi, (int32_t*)counts,
+      (const int32_t*)base0, (const int32_t*)carry_in, (int32_t*)carry_out, L,
+      l, (T)bound, strict, do_hpc, hpc_end, tile, cap, nt);
 }
 
 }  // namespace
 
 // width: 16, 32 or 64 (NtHash1), or 31 (the NtHash2-hybrid variant).
 // seeds: 16 values of the width's type (uint64_t at 64, else uint32_t);
-// out_hash_hi is written only at width 64.
+// out_hash_hi is written only at width 64.  base0 int32[B], carry_in and
+// carry_out int32[B, l]: null for a fresh read and no carry-out.
 extern "C" int s2k_fused_scan(const void* codes, const void* lengths,
                               const void* limits, const void* seeds,
                               void* out_start, void* out_end, void* out_hash,
-                              void* out_hash_hi, void* counts, int B, int L,
-                              int l, uint64_t bound, int width, int strict,
+                              void* out_hash_hi, void* counts,
+                              const void* base0, const void* carry_in,
+                              void* carry_out, int B, int L, int l,
+                              uint64_t bound, int width, int strict,
                               int do_hpc, int hpc_end, int tile, int cap,
                               int nt, void* stream) {
   if (l < 2 || l > LMAX) return (int)cudaErrorInvalidValue;
@@ -212,8 +253,8 @@ extern "C" int s2k_fused_scan(const void* codes, const void* lengths,
   const cudaStream_t s = (cudaStream_t)stream;
 #define S2K_LAUNCH(H)                                                       \
   launch<H>(codes, lengths, limits, seeds, out_start, out_end, out_hash,    \
-            out_hash_hi, counts, B, L, l, bound, strict, do_hpc, hpc_end,   \
-            tile, cap, nt, s)
+            out_hash_hi, counts, base0, carry_in, carry_out, B, L, l, bound, \
+            strict, do_hpc, hpc_end, tile, cap, nt, s)
   switch (width) {
     case 16: S2K_LAUNCH(H16); break;
     case 31: S2K_LAUNCH(H31); break;

@@ -134,11 +134,12 @@ def require(t, name: str, dtype, shape, device) -> None:
 
 
 def require_cuda(device, **tensors) -> None:
-    """Raise unless the device is a GPU and every tensor is contiguous."""
+    """Raise unless the device is a GPU and every tensor given (None is an
+    absent optional input) is contiguous."""
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     for name, t in tensors.items():
-        if not t.is_contiguous():
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name}: the kernel needs a contiguous tensor")
 
 

@@ -8,6 +8,17 @@ its emitting element: its last element, or its one-past-last element when
 ``hpc_end`` (hpc mode: end = pos[f+l] - 1, so the final window is never
 emitted).  Per tile, ``counts`` = (kept survivors, raw selected, kept
 stream elements); kept < raw means the tile's ``cap`` slots overflowed.
+
+The scan resumes mid-read from a carry (``ops/long_read.py`` cuts a long
+read into chunks): ``base0`` int32[B] is the global kept rank before this
+chunk and ``carry0`` int32[B, l] the last l stream elements before it,
+right-aligned and packed ``(pos << 3) | code`` with chunk-relative (so
+negative) positions; only the last min(base0, l) are real.  Windows are
+selected by their global start rank, so each chunk emits exactly the
+windows whose emitting element it holds.  With ``emit_carry`` the scan
+also returns the last l elements of its stream in the same packing, for
+the next chunk (whose caller subtracts ``chunk << 3`` to rebase them); the
+next base is ``base0 + counts[:, :, 2].sum(1)``.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ TILE = 16384  # bases per output tile
 MAX_L = 255
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 3 + [ctypes.c_uint64] + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 12 + [_I] * 3 + [ctypes.c_uint64] + [_I] * 7 + [_P]
 
 # Kernel width per (hash_width, variant): 31 is the NtHash2-hybrid variant.
 _WIDTHS = {(16, "nthash1"): 16, (32, "nthash1"): 32, (64, "nthash1"): 64,
@@ -79,13 +90,18 @@ def fused_minimizer_scan(
     cap: int | None = None,  # survivor slots per tile; None = tile
     hash_width: int = 32,
     variant: str = "nthash1",
+    base0: torch.Tensor | None = None,  # int32[B] carry-in kept rank
+    carry0: torch.Tensor | None = None,  # int32[B, l] carry-in elements
+    emit_carry: bool = False,
 ):
     """-> (start, end, hash) int32[B, nt, cap] and counts int32[B, nt, 3],
-    nt = ceil(L / tile).  Tile t's survivors are the first counts[b, t, 0]
+    nt = ceil(L / tile), then the carry-out int32[B, l] when
+    ``emit_carry``.  Tile t's survivors are the first counts[b, t, 0]
     slots of its row, in stream order; later slots are undefined.
     ``hash`` holds u32 bit patterns; at hash_width 64 it is the pair (hi,
-    lo) of the u64's halves.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    lo) of the u64's halves.  ``base0`` and ``carry0`` default to a fresh
+    read.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if codes.ndim != 2:
         raise ValueError(f"codes must be [B, L], got {tuple(codes.shape)}")
     B, L = codes.shape
@@ -95,6 +111,10 @@ def fused_minimizer_scan(
     build.require(limit, "limit", torch.int32, (B,), dev)
     if not 2 <= l <= MAX_L:
         raise ValueError(f"l={l} must be in [2, {MAX_L}]")
+    if base0 is not None:
+        build.require(base0, "base0", torch.int32, (B,), dev)
+    if carry0 is not None:
+        build.require(carry0, "carry0", torch.int32, (B, l), dev)
     if L >= 1 << 28:
         raise ValueError("padded length must be < 2^28")
     width = kernel_width(hash_width, variant)
@@ -108,9 +128,11 @@ def fused_minimizer_scan(
     if dev.type == "cpu":
         return fused_scan_plain(
             codes, lengths, limit, l, bound, strict, do_hpc, hpc_end, tile, cap,
-            hash_width, variant,
+            hash_width, variant, base0, carry0, emit_carry,
         )
-    build.require_cuda(dev, codes=codes, lengths=lengths, limit=limit)
+    build.require_cuda(
+        dev, codes=codes, lengths=lengths, limit=limit, base0=base0, carry0=carry0
+    )
     nt = -(-L // tile)
     start, end, hsh, *hi = (
         torch.empty((B, nt, cap), dtype=torch.int32, device=dev)
@@ -119,28 +141,38 @@ def fused_minimizer_scan(
     hsh_hi = hi[0] if hi else None
     counts = torch.empty((B, nt, 3), dtype=torch.int32, device=dev)
     out_hash = hsh if hsh_hi is None else (hsh_hi, hsh)
-    if B == 0 or L == 0:
+    carry_out = (torch.empty((B, l), dtype=torch.int32, device=dev)
+                 if emit_carry else None)
+    outs = (start, end, out_hash, counts) + ((carry_out,) if emit_carry else ())
+    if B == 0 or L == 0:  # no step: the carry passes through
         counts.zero_()
-        return start, end, out_hash, counts
+        if emit_carry and carry0 is not None:
+            carry_out.copy_(carry0)
+        elif emit_carry:
+            carry_out.zero_()
+        return outs
     fn = build.function("s2k_fused_scan", _ARGTYPES)
+    opt = [None if t is None else build.ptr(t) for t in (hsh_hi, base0, carry0, carry_out)]
     with torch.cuda.device(dev):
         err = fn(
             *map(build.ptr, (codes, lengths, limit, _seeds(dev, width), start, end, hsh)),
-            None if hsh_hi is None else build.ptr(hsh_hi), build.ptr(counts),
+            opt[0], build.ptr(counts), *opt[1:],
             B, L, l, bound, width, int(strict), int(do_hpc), int(hpc_end), tile,
             cap, nt, build.stream_of(dev),
         )
     build.launches["fused_scan"] += 1
     build.check(err, "s2k_fused_scan")
-    return start, end, out_hash, counts
+    return outs
 
 
 def fused_scan_plain(
     codes, lengths, limit, l, bound, strict, do_hpc, hpc_end, tile, cap,
-    hash_width=32, variant="nthash1",
+    hash_width=32, variant="nthash1", base0=None, carry0=None, emit_carry=False,
 ):
     """The plain PyTorch version of the kernel, on any device.  Slots past
-    a tile's kept count are zero."""
+    a tile's kept count are zero.  The carry's elements are prepended to
+    the chunk's kept stream at global ranks base0 - l ..; the window hash
+    does not depend on the rank, so only the masks see it."""
     B, L = codes.shape
     dev = codes.device
     nt = -(-L // tile)
@@ -152,20 +184,32 @@ def fused_scan_plain(
     (scode, spos), n = compact(
         keep, [codes.to(torch.int64) & 7, j.expand(B, L)], L, [CODE_PAD, L]
     )
-    h = canonical_nthash(scode, l, hash_width, variant)
-    nwin = L - l + 1
+    base = (torch.zeros(B, dtype=torch.int64, device=dev) if base0 is None
+            else base0.to(torch.int64))
+    carry = (torch.zeros((B, l), dtype=torch.int64, device=dev) if carry0 is None
+             else carry0.to(torch.int64))
+    # The extended stream: the carry in [0, l), the chunk's kept elements
+    # from l on; window f starts at global rank base - l + f.
+    xcode = torch.cat([carry & 7, scode], dim=1)
+    xpos = torch.cat([carry >> 3, spos, spos.new_full((B, 1), L)], dim=1)
+    h = canonical_nthash(xcode, l, hash_width, variant)
+    nwin = L + 1
     f = torch.arange(nwin, device=dev)
     emit = f + (l if hpc_end else l - 1)  # stream index of the emitting element
+    rank = base[:, None] - l + f[None, :]
     passed = below_bound(h, bound, strict, hash_width)
     sel = (
-        (emit[None, :] < n[:, None])
-        & (f[None, :] <= limit[:, None])
+        (emit[None, :] >= l)
+        & (emit[None, :] < (n + l)[:, None])
+        & (rank >= 0)
+        & (rank <= limit[:, None])
         & passed
     )
-    pos = torch.cat([spos, spos.new_full((B, 1), L)], dim=1)
-    start = spos[:, :nwin]
-    end = pos[:, l : l + nwin] - 1 if hpc_end else spos[:, l - 1 : l - 1 + nwin]
-    etile = (torch.gather(pos, 1, emit.expand(B, nwin)) // tile).clamp_(max=nt - 1)
+    start = xpos[:, :nwin]
+    end = xpos[:, l : l + nwin] - 1 if hpc_end else xpos[:, l - 1 : l - 1 + nwin]
+    # A carried emitting element (never selected) would give a negative tile.
+    epos = torch.gather(xpos, 1, emit.expand(B, nwin)).clamp_(min=0)
+    etile = (epos // tile).clamp_(max=nt - 1)
 
     seli = sel.to(torch.int64)
     raw = torch.zeros((B, nt), dtype=torch.int64, device=dev)
@@ -183,7 +227,13 @@ def fused_scan_plain(
     stream = stream.view(B, nt, tile).sum(dim=2)
     counts = torch.stack([raw.clamp(max=cap), raw, stream], dim=2)
     hsh = outs[2] if hash_width != 64 else (outs[3], outs[2])
-    return outs[0], outs[1], hsh, counts.to(torch.int32)
+    out = (outs[0], outs[1], hsh, counts.to(torch.int32))
+    if not emit_carry:
+        return out
+    # The last l elements of the extended stream, [n, n + l).
+    last = n.to(torch.int64)[:, None] + torch.arange(l, device=dev)[None, :]
+    packed = (torch.gather(xpos, 1, last) << 3) | torch.gather(xcode, 1, last)
+    return out + (packed.to(torch.int32),)
 
 
 def valid_slots(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

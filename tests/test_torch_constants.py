@@ -134,20 +134,26 @@ def test_spec_from_jax_rejects_unported_widths():
 
 def test_port_imports_without_jax():
     """With jax made unimportable, the port imports and runs its CPU
-    pipeline, and never loads the reference package."""
+    pipeline and long-read path, imports its profiling script, and never
+    loads the reference package."""
     code = """
 import sys
 sys.modules["jax"] = None
 import numpy as np, torch
 import rust_seq2kminmers_torch as p
 from rust_seq2kminmers_torch import convert
-from rust_seq2kminmers_torch.ops.cuda import build, fused_scan, slot_compact, assemble_kernel, masked_compact
+from rust_seq2kminmers_torch.ops.cuda import build, fused_scan, slot_compact, assemble_kernel, masked_compact, inrow_compact
+from rust_seq2kminmers_torch.ops import long_read
+from rust_seq2kminmers_torch.scripts import prof_long_read, prof_mxu_compact
 codes = p.constants.with_keep_bits(np.random.default_rng(0).integers(0, 4, (2, 4096)))
 for spec in (p.PipelineSpec(l=31, k=5, density=0.05, mode="hpcsimd"),
              p.PipelineSpec(l=301, k=5, density=0.05, mode="hpc", hash_width=64)):
     out = p.kminmer_pipeline(torch.from_numpy(codes), torch.tensor([4096, 3000], dtype=torch.int32), spec)
     assert int(out.n_kminmers.sum()) > 0
 assert len(p.kminmers_list("ACGT" * 100, 10, 3, 0.2, "hpc", device="cpu")) > 0
+assert len(p.kminmers_long("ACGTTGCA" * 500, 10, 3, 0.2, "hpc", chunk=1024, device="cpu")["hash"]) > 0
+assert len(prof_mxu_compact.tile_inputs()[4][0]) == 4
+assert prof_long_read.random_read(64).shape == (64,)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rust_seq2kminmers_tpu")]
 assert bad == ["jax"] and sys.modules["jax"] is None, bad
 print("ok")

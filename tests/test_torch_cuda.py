@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from rust_seq2kminmers_torch import kminmers_list
+from rust_seq2kminmers_torch import kminmers_list, kminmers_long, kminmers_long_batch
 from rust_seq2kminmers_torch.constants import XCODE_PAD, with_keep_bits
 from rust_seq2kminmers_torch.ops.assemble import assemble_kminmers, assemble_plain
 from rust_seq2kminmers_torch.ops.compact import compact
@@ -26,6 +26,11 @@ from rust_seq2kminmers_torch.ops.cuda.fused_scan import (
     fused_minimizer_scan,
     fused_scan_plain,
     valid_slots,
+)
+from rust_seq2kminmers_torch.ops.cuda.inrow_compact import (
+    inrow_compact_ballot,
+    inrow_compact_mma,
+    inrow_compact_plain,
 )
 from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
 from rust_seq2kminmers_torch.ops.hpc import hpc_compress
@@ -314,3 +319,87 @@ def test_wrappers_reject_bad_tensors(cuda):
         masked_compact(codes[:, ::2] > 3, [codes.to(torch.int32)[:, ::2]], 10, [0])
     with pytest.raises(ValueError, match="device"):
         masked_compact(codes > 3, [codes.cpu()], 10, [0])
+
+
+@pytest.mark.parametrize(
+    "mode,hash_width,variant",
+    [("regular", 32, "nthash1"), ("hpc", 32, "nthash1"), ("hpcsimd", 32, "nthash1"),
+     ("regular", 64, "nthash1"), ("hpc", 16, "nthash1"), ("hpc", 32, "nthash2")],
+)
+@pytest.mark.parametrize("l", [2, 31, 255])
+def test_fused_scan_kernel_carry(cuda, mode, hash_width, variant, l):
+    """Chunk 1 by the kernel, then chunk 2 from its rebased carry by the
+    kernel and the plain version: outputs, counts and carry-out agree.  A
+    run over the whole of chunk 2 passes the carry through in hpc modes,
+    and a short first chunk leaves base < l."""
+    C = 20000
+    codes, lengths = _batch(l + hash_width, B=5, L=2 * C, runs=True)
+    codes[1, C:] = codes[1, C] & 7  # one run over the whole second chunk
+    codes[2, 100:C] = codes[2, 100] & 7  # chunk 1 keeps about 100 bases
+    codes, lengths = codes.to(cuda), lengths.to(cuda)
+    spec = PipelineSpec(
+        l=l, k=3, density=0.05, mode=mode, hash_width=hash_width, variant=variant
+    )
+    limit = _scan_args(spec, lengths)[0]
+    rest = _scan_args(spec, lengths)[1:]
+    first = fused_minimizer_scan(
+        codes[:, :C].contiguous(), lengths.clamp(max=C), limit, *rest, 4096, 256,
+        hash_width, variant, emit_carry=True,
+    )
+    base = first[3][:, :, 2].sum(dim=1, dtype=torch.int32)
+    carry = first[4] - (C << 3)
+    args = (codes[:, C:].contiguous(), (lengths - C).clamp(0, C).to(torch.int32), limit,
+            *rest, 4096, 256, hash_width, variant)
+    got = fused_minimizer_scan(*args, base0=base, carry0=carry, emit_carry=True)
+    want = fused_scan_plain(*args, base, carry, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], want[3])
+    assert int(got[3][:, :, 1].sum()) > 0
+    for g, w in zip(_hash_cols(got[:3]), _hash_cols(want[:3])):
+        assert torch.equal(valid_slots(g, got[3]), w)
+    real = torch.clamp(base + got[3][:, :, 2].sum(dim=1), max=l)
+    for b in range(5):
+        n = int(real[b])
+        assert torch.equal(got[4][b, l - n :], want[4][b, l - n :])
+
+
+@pytest.mark.parametrize("npay", [1, 2, 4])
+@pytest.mark.parametrize("R,keep_share", [(512, 0.75), (1, 0.5), (1000, 0.0), (4099, 1.0)])
+def test_inrow_compact_kernels(cuda, R, keep_share, npay):
+    """K5 and K6 bit for bit with the plain version, NaN and negative-zero
+    payloads included, rows not a multiple of the block's."""
+    g = torch.Generator(device=cuda).manual_seed(R + npay)
+    keep = (torch.rand((R, 128), generator=g, device=cuda) < keep_share).float()
+    xs = [torch.randint(-(2**31), 2**31 - 1, (R, 128), generator=g, device=cuda,
+                        dtype=torch.int32).view(torch.float32) for _ in range(npay)]
+    want = inrow_compact_plain(xs, keep)
+    for name, fn in (("inrow_compact_ballot", inrow_compact_ballot),
+                     ("inrow_compact_mma", inrow_compact_mma)):
+        before = build.launches[name]
+        got = fn(xs, keep)
+        torch.cuda.synchronize()
+        assert build.launches[name] == before + 1
+        for o, w in zip(got, want):
+            assert torch.equal(o.view(torch.int32), w.contiguous().view(torch.int32)), name
+
+
+@pytest.mark.parametrize("mode,hash_width", [("hpcsimd", 32), ("hpc", 64), ("regular", 16)])
+def test_kminmers_long_on_card(cuda, mode, hash_width):
+    """kminmers_long on the card launches K1, K2 and K3 and equals its run
+    on the CPU (the plain versions), at three chunk sizes, with a batch."""
+    rng = np.random.default_rng(11)
+    seqs = ["".join(rng.choice(list("ACGTTTTTN"), size=n)) for n in (300000, 70001, 20)]
+    kw = dict(l=31, k=5, density=0.02, mode=mode, hash_width=hash_width)
+    want = [kminmers_long(s, chunk=1 << 16, device="cpu", **kw) for s in seqs]
+    before = dict(build.launches)
+    got = kminmers_long(seqs[0], chunk=1 << 16, device=cuda, **kw)
+    ran = {name: build.launches[name] - before.get(name, 0) for name in build.launches}
+    assert ran["fused_scan"] == 5 and ran["slot_compact"] == 5 and ran["assemble"] == 1
+    for key in want[0]:
+        assert np.array_equal(got[key], want[0][key]), key
+    for chunk in (1 << 10, 1 << 20):
+        batch = kminmers_long_batch(seqs, chunk=chunk, device=cuda, **kw)
+        for g, w in zip(batch, want):
+            for key in w:
+                assert np.array_equal(g[key], w[key]), (chunk, key)
+    assert len(want[0]["hash"]) > 1000 and len(want[2]["hash"]) == 0

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from rust_seq2kminmers_torch.convert import carry_from_jax, carry_to_jax
 from rust_seq2kminmers_torch.ops import hpc as port_hpc
 from rust_seq2kminmers_torch.ops import nthash as port_nthash
 from rust_seq2kminmers_torch.ops.cuda import fused_scan as port
@@ -220,3 +221,132 @@ def test_fused_scan_default_cap_is_lossless_at_density():
     cap = port.default_tile_cap(spec.density, TILE)
     assert cap < TILE
     _assert_same(codes, lengths, spec, cap=cap)
+
+
+# ---- K1's carry: a read scanned in two chunks --------------------------------
+
+CHUNK = 2048
+
+
+def _carry_reads(seed):
+    """Three reads of two chunks each: random bases; a homopolymer run over
+    the whole second chunk (in the hpc modes its carry passes through);
+    a first chunk that keeps fewer than 200 bases (base < l at l = 200)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n, alphabet="ACGTN"):
+        return "".join(rng.choice(list(alphabet), size=n))
+
+    seqs = [
+        rand(2 * CHUNK - 100, "AACCGGTTAAAANacgQ"),
+        rand(1500) + "A" * 2800,
+        rand(150) + "C" * 1900 + rand(1800),
+    ]
+    codes = np.full((3, 2 * CHUNK), XCODE_PAD, dtype=np.uint8)
+    lengths = np.zeros(3, dtype=np.int64)
+    for b, s in enumerate(seqs):
+        s = s[: 2 * CHUNK]
+        codes[b, : len(s)] = encode_xcodes(s, "scalar")
+        lengths[b] = len(s)
+    return codes, lengths
+
+
+def _jax_chunk(codes, lengths, spec, ci, base0, pend0):
+    local = np.clip(lengths - ci * CHUNK, 0, CHUNK).astype(np.int32)
+    st, en, hs, cnt, pend = fused_minimizer_scan(
+        jnp.asarray(codes[:, ci * CHUNK : (ci + 1) * CHUNK]),
+        jnp.asarray(local),
+        jnp.asarray(_limit(lengths, spec)),
+        spec.l, spec.bound, spec.strict_threshold, spec.is_hpc,
+        spec.mode == "hpc",
+        nslots=slots_for_density(spec.density),
+        block_rows=8,
+        interpret=True,
+        rows_out=default_rows_out(spec.density, 8),
+        base0=None if base0 is None else jnp.asarray(base0),
+        pend0=None if pend0 is None else jnp.asarray(pend0),
+        emit_carry=True,
+        hash_width=spec.hash_width,
+    )
+    st, en, cnt, pend = (np.asarray(a) for a in (st, en, cnt, pend))
+    hs = np.asarray(hs[1] if spec.hash_width == 64 else hs)
+    B, nt = cnt.shape[:2]
+    per = st.shape[1] // nt * st.shape[2]
+    rows = [a.reshape(B, nt, per) for a in (st, en, hs)]
+    return rows, cnt, pend
+
+
+@pytest.mark.parametrize("mode,l,hash_width", [
+    ("regular", 31, 32), ("hpc", 31, 32), ("hpcsimd", 200, 32), ("hpc", 200, 64),
+])
+def test_fused_scan_carry_matches_reference(mode, l, hash_width):
+    """Chunk 1 runs fresh in the reference; its carry, rebased, starts
+    chunk 2 in both packages.  Chunk 2's survivor streams, count sums and
+    the real part of the carry-out (its last min(base, l) elements) agree;
+    the carry is two TPU rows at l = 200.  And the reference, resumed from
+    the port's own chunk-1 carry, gives the same chunk 2."""
+    codes, lengths = _carry_reads(l + hash_width)
+    spec = PipelineSpec(l=l, k=2, density=0.1, mode=mode, hash_width=hash_width)
+    _, cnt1, pend1 = _jax_chunk(codes, lengths, spec, 0, None, None)
+    base1 = cnt1[..., 2].sum(axis=1).astype(np.int32)
+    pend1 = pend1 - (CHUNK << 3)
+    jrows, jcnt, jpend = _jax_chunk(codes, lengths, spec, 1, base1, pend1)
+
+    base0, carry0 = carry_from_jax(base1, pend1, l)
+    local = np.clip(lengths - CHUNK, 0, CHUNK).astype(np.int32)
+    *prows, pcnt, pcarry = port.fused_minimizer_scan(
+        torch.from_numpy(codes[:, CHUNK:].copy()),
+        torch.from_numpy(local),
+        torch.from_numpy(_limit(lengths, spec)),
+        spec.l, spec.bound, spec.strict_threshold, spec.is_hpc, spec.mode == "hpc",
+        tile=TILE, hash_width=hash_width, base0=base0, carry0=carry0,
+        emit_carry=True,
+    )
+    prows[2] = prows[2][1] if hash_width == 64 else prows[2]
+    prows, pcnt = [t.numpy() for t in prows], pcnt.numpy()
+    np.testing.assert_array_equal(pcnt.sum(axis=1), jcnt.sum(axis=1))
+    assert _streams(prows, pcnt) == _streams(jrows, jcnt)
+    assert cnt1[..., 1].sum() > 0 and jcnt[..., 1].sum() > 0
+    base2 = base1 + pcnt[..., 2].sum(axis=1)
+    want = carry_from_jax(base2, jpend, l)[1].numpy()
+    for b in range(3):
+        real = min(int(base2[b]), l)
+        np.testing.assert_array_equal(pcarry[b, l - real :].numpy(), want[b, l - real :])
+    if spec.is_hpc:
+        assert pcnt[1, :, 2].sum() <= 1  # the run's chunk keeps (almost) nothing
+        assert base1[2] < l or l == 31  # at l = 200, read 2 starts chunk 2 at base < l
+
+    # The other way: the port runs chunk 1 fresh, and the reference resumes
+    # chunk 2 from the port's carry, converted by carry_to_jax.
+    *_, pcnt1, pcarry1 = port.fused_minimizer_scan(
+        torch.from_numpy(codes[:, :CHUNK].copy()),
+        torch.from_numpy(np.clip(lengths, 0, CHUNK).astype(np.int32)),
+        torch.from_numpy(_limit(lengths, spec)),
+        spec.l, spec.bound, spec.strict_threshold, spec.is_hpc, spec.mode == "hpc",
+        tile=TILE, hash_width=hash_width, emit_carry=True,
+    )
+    pbase1 = pcnt1[..., 2].sum(dim=1, dtype=torch.int32)
+    np.testing.assert_array_equal(pbase1.numpy(), base1)
+    base0_j, pend0_j = carry_to_jax(pbase1, pcarry1 - (CHUNK << 3))
+    xrows, xcnt, _ = _jax_chunk(codes, lengths, spec, 1, base0_j, pend0_j)
+    np.testing.assert_array_equal(xcnt.sum(axis=1), jcnt.sum(axis=1))
+    assert _streams(xrows, xcnt) == _streams(jrows, jcnt)
+
+
+def test_carry_conversion_round_trips():
+    """carry_to_jax then carry_from_jax is the identity, and the reverse
+    keeps the last l elements of the reference's 8 x 128 layout."""
+    rng = np.random.default_rng(1)
+    for l in (2, 31, 200, 255):
+        base = torch.from_numpy(rng.integers(0, 2**31 - 1, 4).astype(np.int32))
+        carry = torch.from_numpy(
+            rng.integers(-(2**31), 2**31 - 1, (4, l)).astype(np.int32)
+        )
+        base0, pend0 = carry_to_jax(base, carry)
+        assert pend0.shape == (4, 8, 128) and pend0.dtype == np.int32
+        assert not pend0.reshape(4, -1)[:, : 1024 - l].any()
+        b2, c2 = carry_from_jax(base0, pend0, l)
+        assert torch.equal(b2, base) and torch.equal(c2, carry)
+        pend = rng.integers(-(2**31), 2**31 - 1, (4, 8, 128)).astype(np.int32)
+        back = carry_to_jax(*carry_from_jax(base0, pend, l))[1].reshape(4, -1)
+        np.testing.assert_array_equal(back[:, 1024 - l :], pend.reshape(4, -1)[:, 1024 - l :])
