@@ -25,8 +25,9 @@ In order, and any failure raises (exit code != 0):
   2. builds the kernel library; prints the build time and ptxas's
      register / shared-memory / spill lines;
   3. checks each kernel bit for bit against its plain PyTorch version at
-     the paths' shapes: K1 fused scan (u32, and widths 16/64 and nthash2),
-     K2 slot compaction, K3 assembly (xorshift, murmur and identity mixes),
+     the paths' shapes: K1 fused scan (u32, and widths 16/64 and nthash2;
+     and its passes 1-2, the tiles' ranks and pending prefixes, against
+     ``tile_carries_plain``), K2 slot compaction, K3 assembly (xorshift, murmur and identity mixes),
      K4 masked compaction (the dense packed HPC compaction, m = L, and a
      3-column minimizer compaction at a 1% mask);
   4. reproduces the 15 u32 and 20 u64 golden hashes
@@ -37,10 +38,16 @@ In order, and any failure raises (exit code != 0):
      its kernels (and the general path never K1), and all 12 KminmerBatch
      fields must equal the plain pipeline's on the card;
   6. times each path and each kernel with CUDA events, beside the plain
-     versions;
+     versions; prints K1's time per instance beside its time with one
+     block per read (before the tile-parallel design) and its bound, and
+     every kernel's bound
+     (the larger of its bytes over the HBM rate and its integer operations
+     over the peak rate); profiles 10 main-path steps (device busy time a
+     step, idle share, device time by kernel);
   7. checks K1 with a carry bit for bit against its plain version: chunk 2
      of [4, 2 x 4 Mbp] reads from the carry the kernel gave on chunk 1, for
-     u32 hpcsimd l=31, u64 regular l=31 and nthash2 hpc l=201;
+     u32 hpcsimd l=31, u64 regular l=31 and nthash2 hpc l=201, and times
+     it beside the one-block-per-read time and the bound;
   8. checks K5 and K6 bit for bit against their plain version at
      [512, 128] and [262144, 128], 1 and 4 payloads;
   9. runs the profiling script with the counters at zero: it checks K5 and
@@ -51,11 +58,17 @@ In order, and any failure raises (exit code != 0):
      one [1, 2^26] row; two 150 Mbp reads batched equal their own runs.
      Prints the wall time, its GB/s and K1's time per chunk.  Then holds
      the long read's kernels bit for bit against their plain versions at
-     its shapes: K1 with a carry (carry-out included) and K2 on a
-     [1, 2^25] chunk, K3 on the read's whole [1, M] minimizer stream.
+     its shapes: K1 with a carry (carry-out included) and its passes 1-2
+     and K2 on a [1, 2^25] chunk, K3 on the read's whole [1, M] minimizer
+     stream; K1's time per chunk beside the one-block-per-read time and
+     the bound.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.
+Then a summary line of K1 against its one-block-per-read design.  The
+second-to-last line
+is a JSON object with one entry per kernel (its launches on the paths,
+error, time, plain time, bound and what binds it; no PyTorch call computes
+any of these functions, so ``library_ms`` is null); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -94,6 +107,45 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     ),
 }
 N_LONG = 300_000_000  # the reference's own long-read size (LONGREAD_r05.json)
+# The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): HBM bytes a
+# second, and its 67 T/s non-tensor float32 rate taken for the integer
+# operations, whose own rate that table does not list (so the operations'
+# time is a floor).
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# K1's times in ms with one block per read, before its tile-parallel
+# design (PERF.md, the K1 row's earlier times).
+K1_ONE_BLOCK_MS = {
+    "u32 hpcsimd l=31": 2.5896,
+    "width 16 nthash1 regular l=31": 2.8948,
+    "width 64 nthash1 regular l=31": 4.0414,
+    "width 32 nthash2 hpcsimd l=31": 2.7285,
+    "carry u32 hpcsimd l=31": 9.4017,
+    "carry u64 regular l=31": 15.4303,
+    "carry nthash2 hpc l=201": 27.9222,
+    "long-read chunk": 79.2172,
+}
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(codes, counts, l, width, carry):
+    """K1's least work on these inputs: each base read once, the lengths,
+    limits and (with a carry) base0, carry-in and carry-out, and each kept
+    survivor's (start, end, hash[, hash_hi]) and the counts written once;
+    integer operations: the keep test per base (3), and per stream element
+    its two rotated terms and two prefix XORs, then its window's two XORs,
+    two rotations, the min and the compare (12)."""
+    B_, L_ = codes.shape
+    survivors = int(counts[..., 0].sum())
+    nbytes = (B_ * L_ + 8 * B_ + survivors * (16 if width == 64 else 12)
+              + counts.numel() * 4 + (B_ * (8 * l + 4) if carry else 0))
+    return bound(nbytes, 3 * B_ * L_ + 12 * int(counts[..., 2].sum()))
 
 
 def check(ok, msg):
@@ -123,6 +175,8 @@ def main():
         TILE,
         fused_minimizer_scan,
         fused_scan_plain,
+        tile_carries,
+        tile_carries_plain,
         valid_slots,
     )
     from rust_seq2kminmers_torch.ops.cuda.inrow_compact import (
@@ -143,6 +197,7 @@ def main():
         kminmer_pipeline_plain,
     )
     from rust_seq2kminmers_torch.scripts import prof_mxu_compact as prof
+    from rust_seq2kminmers_torch.scripts.prof_long_read import device_busy
 
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -212,6 +267,11 @@ def main():
     k1p = fused_scan_plain(codes, lengths, limit, *scan_args, TILE, cap)
     record("fused_scan", "u32 hpcsimd l=31",
            max_abs_err([valid_slots(t, k1[3]) for t in k1[:3]] + [k1[3]], k1p))
+    got_c = tile_carries(codes, lengths, spec.l, TILE, True)
+    want_c = tile_carries_plain(codes, lengths, spec.l, TILE, True)
+    record("fused_scan", "passes 1-2 (ranks, pending prefixes) vs tile_carries_plain",
+           max_abs_err(got_c, want_c))
+    del got_c, want_c
     n_raw_tiles = int(k1[3][:, :, 1].sum())
     check(n_raw_tiles > 0, "K1 selected no minimizer")
     check(bool((k1[3][:, :, 0] == k1[3][:, :, 1]).all()), "K1 tile overflow")
@@ -387,6 +447,57 @@ def main():
     }
     for name in ms:
         log(f"{name} on {card}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms")
+
+    # K1 per instance beside its one-block-per-read time and the bound; the
+    # bound of every kernel at the shape its `ms` was timed.
+    k1_seen = []
+
+    def k1_line(what, t, bnd):
+        k1_seen.append((what, t, bnd))
+        log(f"K1 {what} on {card}: {t:.4f} ms (one block per read: "
+            f"{K1_ONE_BLOCK_MS[what]} ms; bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]})")
+
+    bounds = {"fused_scan": k1_bound(codes, k1[3], spec.l, 32, False)}
+    k1_line("u32 hpcsimd l=31", ms["fused_scan"], bounds["fused_scan"])
+    for (w, v), (args, got) in width_scans.items():
+        mode = "hpcsimd" if args[6] else "regular"
+        k1_line(f"width {w} {v} {mode} l=31",
+                time_ms(lambda i, a=args: fused_minimizer_scan(*a), 20),
+                k1_bound(args[0], got[3], 31, w, False))
+    survivors = int(kept.sum())
+    bounds["slot_compact"] = bound(
+        survivors * 12 + kept.numel() * 4 + B * m_cap * 12 + B * 4, 3 * survivors)
+    M = min_hash.shape[1]
+    nk = M - spec.k + 1
+    bounds["assemble"] = bound(B * M * 4 + B * nk * 9, B * M * 12 + B * nk * (4 * spec.k + 4))
+    n_hpc = int(hpc_args[0].sum())
+    bounds["masked_compact"] = bound(B * L + n_hpc * 4 + B * L * 4 + B * 4, 2 * B * L)
+    for name in bounds:
+        log(f"bound of {name} on these inputs: {bounds[name][0]:.4f} ms by {bounds[name][1]}")
+
+    # The main path's device time: 10 steps under the profiler; the busy
+    # time is the union of the kernels' and copies' spans.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tr:
+        t0 = time.perf_counter()
+        for i in range(10):
+            kminmer_pipeline(pool[i % 2], lengths, spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in tr.events() if e.device_type == DeviceType.CUDA]
+    check(dev_events, "the profiler recorded no device event")
+    busy, _ = device_busy(dev_events)
+    per_kernel = {}
+    for e in dev_events:
+        key = next((k for k in ("tile_summary", "tile_carries", "scan_kernel", "slot_compact",
+                                "assemble") if k in e.name), "other")
+        per_kernel[key] = per_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e4
+    log(f"main path under the profiler on {card}: device busy {busy * 100:.4f} ms a step "
+        f"of {wall * 100:.4f} ms wall (idle share {1 - busy / wall:.4f}); device ms a step "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_kernel.items()))
     extra = {
         "masked_compact (b) 3 columns, 1% mask": (
             lambda i: masked_compact(*min_args), lambda i: compact(*min_args)),
@@ -401,12 +512,11 @@ def main():
             lambda i: slot_compact_plain(*got64[:3], kept64, m64)),
     }
     for (w, v), (args, _) in width_scans.items():
-        extra[f"fused_scan width {w} {v}"] = (
-            lambda i, a=args: fused_minimizer_scan(*a),
-            lambda i, a=args: fused_scan_plain(*a))
+        extra[f"fused_scan plain, width {w} {v}"] = (
+            None, lambda i, a=args: fused_scan_plain(*a))
     for what, (kern, plain) in extra.items():
-        log(f"{what} on {card}: kernel {time_ms(kern, 20):.4f} ms, "
-            f"plain {time_ms(plain, 3, 1):.4f} ms")
+        kern_ms = "" if kern is None else f"kernel {time_ms(kern, 20):.4f} ms, "
+        log(f"{what} on {card}: {kern_ms}plain {time_ms(plain, 3, 1):.4f} ms")
 
     # 7. K1 with a carry: chunk 2 of each read from the kernel's chunk-1 carry
     C = 1 << 22
@@ -440,6 +550,8 @@ def main():
         fresh = time_ms(lambda i: fused_minimizer_scan(chunk2, clen, lim, *sargs), 10)
         log(f"fused_scan [4, {C}] {what} on {card}: with carry {with_carry:.4f} ms, "
             f"without {fresh:.4f} ms")
+        k1_line(f"carry {what}", with_carry,
+                k1_bound(chunk2, got[3], cs.l, cs.hash_width, True))
 
     # 8. K5 and K6 against their plain version, at the script's two shapes
     tile = prof.tile_inputs()
@@ -473,6 +585,9 @@ def main():
     big4 = next(r for r in prof_rows if r["rows"] == prof.BIG_R and r["payloads"] == 4)
     for name, key in (("inrow_compact_ballot", "ballot_ms"), ("inrow_compact_mma", "mma_ms")):
         ms[name], plain_ms[name] = big4[key], big4["plain_ms"]
+        # the keep mask and 4 payloads read, 4 payloads written, f32 each
+        cells = prof.BIG_R * 128
+        bounds[name] = bound(cells * 4 * (1 + 4 + 4), 4 * cells)
 
     # 10. the long-read path, counters at 0 just before
     rng = np.random.default_rng(SEED + 2)
@@ -552,10 +667,15 @@ def main():
     carry = first[4] - ((1 << 25) << 3)
     second = one[:, 1 << 25 :].contiguous()
     k1_chunk = time_ms(lambda i: fused_minimizer_scan(
-        second, full, hpc_lim, *largs, base0=base, carry0=carry, emit_carry=True), 3, 1)
+        second, full, hpc_lim, *largs, base0=base, carry0=carry, emit_carry=True), 10)
     log(f"long read: K1 per 2^25-base chunk (with carry) on {card}: {k1_chunk:.4f} ms; "
         f"{-(-N_LONG // (1 << 25))} chunks = {k1_chunk * -(-N_LONG // (1 << 25)) / 1e3:.4f} s "
-        "of K1 on one SM")
+        "of K1")
+    got_c = tile_carries(second, full, lspec.l, TILE, True, base, carry)
+    want_c = tile_carries_plain(second, full, lspec.l, TILE, True, base, carry)
+    record("fused_scan", "long read: passes 1-2 on chunk 2 of [1, 2^25] with carry",
+           max_abs_err(got_c, want_c))
+    del got_c, want_c
 
     # The long read's kernels against their plain versions, at its shapes:
     # K1 with a carry and K2 on a [1, 2^25] chunk, K3 on the read's whole
@@ -565,6 +685,7 @@ def main():
     want = fused_scan_plain(second, full, hpc_lim, *largs, 32, "nthash1", base, carry, True)
     record("fused_scan", "long read: chunk 2 of [1, 2^25] with carry", max_abs_err(
         [valid_slots(t, got[3]) for t in got[:3]] + [got[3], got[4]], [*want]))
+    k1_line("long-read chunk", k1_chunk, k1_bound(second, got[3], lspec.l, 32, True))
     del want
     lm_cap = lspec.capacity_for(1 << 25)
     kept_l = got[3][:, :, 0].contiguous()
@@ -582,6 +703,10 @@ def main():
            max_abs_err([*got3[0], got3[1]], [*want3[0], want3[1]]))
     del got, got2, want2, got3, want3, mh_d
 
+    log("K1 against its one-block-per-read design, on " + card + ": " + "; ".join(
+        f"{what} {t:.4f} ms (one block per read {K1_ONE_BLOCK_MS[what]}, bound "
+        f"{bnd[0]:.4f} by {bnd[1]})"
+        for what, t, bnd in k1_seen))
     print(json.dumps({"kernels": [
         {
             "name": name,
@@ -592,6 +717,9 @@ def main():
             "max_abs_err": errs[name],
             "ms": ms[name],
             "plain_ms": plain_ms[name],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": None,  # no one PyTorch call computes any of these
         }
         for name, (src, replaces) in KERNELS.items()
     ]}))

@@ -19,6 +19,12 @@ windows whose emitting element it holds.  With ``emit_carry`` the scan
 also returns the last l elements of its stream in the same packing, for
 the next chunk (whose caller subtracts ``chunk << 3`` to rebase them); the
 next base is ``base0 + counts[:, :, 2].sum(1)``.
+
+The same algebra cuts a row into tiles that the card scans in parallel:
+``tile_carries`` gives each tile t its first rank ``base[:, t]`` and its
+pending prefix ``pending[:, t]`` (the carry a scan of tiles 0..t-1 would
+hand it), and tile nt's prefix is the carry-out.  The kernel runs it as
+its passes 1-2, then scans every tile from its own carry (pass 3).
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ TILE = 16384  # bases per output tile
 MAX_L = 255
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 12 + [_I] * 3 + [ctypes.c_uint64] + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 16 + [_I] * 3 + [ctypes.c_uint64] + [_I] * 7 + [_P]
+_CARRY_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
 
 # Kernel width per (hash_width, variant): 31 is the NtHash2-hybrid variant.
 _WIDTHS = {(16, "nthash1"): 16, (32, "nthash1"): 32, (64, "nthash1"): 64,
@@ -133,7 +140,7 @@ def fused_minimizer_scan(
     build.require_cuda(
         dev, codes=codes, lengths=lengths, limit=limit, base0=base0, carry0=carry0
     )
-    nt = -(-L // tile)
+    nt = _tiles(L, tile, l)
     start, end, hsh, *hi = (
         torch.empty((B, nt, cap), dtype=torch.int32, device=dev)
         for _ in range(4 if width == 64 else 3)
@@ -153,16 +160,108 @@ def fused_minimizer_scan(
         return outs
     fn = build.function("s2k_fused_scan", _ARGTYPES)
     opt = [None if t is None else build.ptr(t) for t in (hsh_hi, base0, carry0, carry_out)]
+    # Dropped on return; the caching allocator hands it out again only in
+    # the stream's order, after these launches.
+    scratch = _scratch(B, nt, l, dev)
     with torch.cuda.device(dev):
         err = fn(
             *map(build.ptr, (codes, lengths, limit, _seeds(dev, width), start, end, hsh)),
-            opt[0], build.ptr(counts), *opt[1:],
+            opt[0], build.ptr(counts), *opt[1:], *map(build.ptr, scratch),
             B, L, l, bound, width, int(strict), int(do_hpc), int(hpc_end), tile,
             cap, nt, build.stream_of(dev),
         )
     build.launches["fused_scan"] += 1
     build.check(err, "s2k_fused_scan")
     return outs
+
+
+def _tiles(L: int, tile: int, l: int) -> int:
+    nt = -(-L // tile)
+    if (nt + 1) * l >= 1 << 31:
+        raise ValueError(f"{nt} tiles of {l} pending elements exceed int32 indexing")
+    return nt
+
+
+def _scratch(B: int, nt: int, l: int, dev):
+    """Passes 1-2's int32 arrays, carved from one allocation: tile counts
+    [B, nt], tails [B, nt, l], first ranks [B, nt + 1] and pending
+    prefixes [B, nt + 1, l]."""
+    sizes = [B * nt, B * nt * l, B * (nt + 1), B * (nt + 1) * l]
+    parts = torch.empty(sum(sizes), dtype=torch.int32, device=dev).split(sizes)
+    return [p.view(B, -1) for p in parts]
+
+
+def tile_carries(
+    codes: torch.Tensor,  # uint8[B, L] xcodes
+    lengths: torch.Tensor,  # int32[B]
+    l: int,
+    tile: int,
+    do_hpc: bool,
+    base0: torch.Tensor | None = None,  # int32[B] carry-in kept rank
+    carry0: torch.Tensor | None = None,  # int32[B, l] carry-in elements
+):
+    """K1's passes 1-2 alone -> (base int32[B, nt + 1], pending int32[B,
+    nt + 1, l]): tile t's first global kept rank and the l stream elements
+    before it (ranks base - l .. base - 1), packed ``(pos << 3) | code``
+    with chunk-relative positions, as ``carry0`` is.  base[:, nt] is the
+    next chunk's base0 and pending[:, nt] the carry-out.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel's two passes."""
+    B, L = codes.shape
+    dev = codes.device
+    build.require(codes, "codes", torch.uint8, (B, L), dev)
+    build.require(lengths, "lengths", torch.int32, (B,), dev)
+    if not 2 <= l <= MAX_L:
+        raise ValueError(f"l={l} must be in [2, {MAX_L}]")
+    if base0 is not None:
+        build.require(base0, "base0", torch.int32, (B,), dev)
+    if carry0 is not None:
+        build.require(carry0, "carry0", torch.int32, (B, l), dev)
+    if L >= 1 << 28 or tile < 1:
+        raise ValueError(f"need L < 2^28 and tile >= 1, got L={L}, tile={tile}")
+    if dev.type == "cpu":
+        return tile_carries_plain(codes, lengths, l, tile, do_hpc, base0, carry0)
+    build.require_cuda(dev, codes=codes, lengths=lengths, base0=base0, carry0=carry0)
+    if B == 0 or L == 0:
+        raise ValueError(f"no tile in a [{B}, {L}] batch")
+    nt = _tiles(L, tile, l)
+    tile_count, tail, base, pending = _scratch(B, nt, l, dev)
+    fn = build.function("s2k_tile_carries", _CARRY_ARGTYPES)
+    opt = [None if t is None else build.ptr(t) for t in (base0, carry0)]
+    with torch.cuda.device(dev):
+        err = fn(
+            *map(build.ptr, (codes, lengths)), *opt,
+            *map(build.ptr, (tile_count, tail, base, pending)),
+            B, L, l, int(do_hpc), tile, nt, build.stream_of(dev),
+        )
+    build.launches["tile_carries"] += 1
+    build.check(err, "s2k_tile_carries")
+    return base, pending.view(B, nt + 1, l)
+
+
+def tile_carries_plain(codes, lengths, l, tile, do_hpc, base0=None, carry0=None):
+    """The plain version of passes 1-2, on any device: the extended stream
+    (the carry, then the row's kept elements) read at each tile's ranks."""
+    B, L = codes.shape
+    dev = codes.device
+    nt = -(-L // tile)
+    if do_hpc:
+        keep = hpc_keep_mask(codes, lengths)
+    else:  # every padded position is a stream element
+        keep = torch.ones((B, L), dtype=torch.bool, device=dev)
+    count = torch.nn.functional.pad(keep.to(torch.int64), (0, nt * tile - L))
+    count = count.view(B, nt, tile).sum(dim=2)
+    b0 = (torch.zeros(B, dtype=torch.int64, device=dev) if base0 is None
+          else base0.to(torch.int64))
+    base = torch.cat([b0[:, None], b0[:, None] + torch.cumsum(count, dim=1)], dim=1)
+    j = torch.arange(L, device=dev)
+    packed = (j[None, :] << 3) | (codes.to(torch.int64) & 7)
+    (stream,), _ = compact(keep, [packed], L, [0])
+    carry = (torch.zeros((B, l), dtype=torch.int64, device=dev) if carry0 is None
+             else carry0.to(torch.int64))
+    xstream = torch.cat([carry, stream], dim=1)  # index = rank - (base0 - l)
+    idx = (base - b0[:, None])[:, :, None] + torch.arange(l, device=dev)
+    pending = torch.gather(xstream, 1, idx.view(B, -1)).view(B, nt + 1, l)
+    return base.to(torch.int32), pending.to(torch.int32)
 
 
 def fused_scan_plain(

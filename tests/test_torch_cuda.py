@@ -25,6 +25,8 @@ from rust_seq2kminmers_torch.ops.cuda.assemble_kernel import assemble_kminmers_c
 from rust_seq2kminmers_torch.ops.cuda.fused_scan import (
     fused_minimizer_scan,
     fused_scan_plain,
+    tile_carries,
+    tile_carries_plain,
     valid_slots,
 )
 from rust_seq2kminmers_torch.ops.cuda.inrow_compact import (
@@ -403,3 +405,120 @@ def test_kminmers_long_on_card(cuda, mode, hash_width):
             for key in w:
                 assert np.array_equal(g[key], w[key]), (chunk, key)
     assert len(want[0]["hash"]) > 1000 and len(want[2]["hash"]) == 0
+
+
+# ---- K1's tile-parallel passes ------------------------------------------------
+
+TILE_CASES = [  # mode, l, hash_width, variant, tile, carry
+    ("hpcsimd", 31, 32, "nthash1", 16384, False),
+    ("hpc", 31, 32, "nthash1", 1024, True),
+    ("hpcsimd", 255, 32, "nthash1", 128, True),
+    ("regular", 2, 32, "nthash1", 3000, False),
+    ("simd", 31, 32, "nthash1", 1024, True),
+    ("hpc", 255, 64, "nthash1", 1024, True),
+    ("regular", 255, 64, "nthash1", 16384, False),
+    ("regular", 31, 16, "nthash1", 16, True),
+    ("hpcsimd", 200, 32, "nthash2", 4096, True),
+]
+
+
+def _tile_inputs(cuda, spec, carry):
+    """Five reads of ragged lengths with runs over whole tiles; with
+    ``carry``, chunk 2 of a two-chunk row, resumed from the plain scan of
+    chunk 1, where read 2's chunk 1 keeps ~100 elements (base0 < l in hpc
+    modes at l > 100) and its chunk 2 opens with a run the carry passes
+    through.  -> (codes, lengths, limit, base0, carry0) on the card."""
+    C = 40000
+    codes, lengths = _batch(spec.l + spec.hash_width, B=5, L=2 * C if carry else C, runs=True)
+    codes[1, C // 8 : C // 2] = codes[1, C // 8] & 7  # a run over whole tiles
+    codes[3, 10:] = XCODE_PAD  # a read of length <= l
+    lengths[3] = min(int(lengths[3]), spec.l)
+    codes[2, 100 : C + 3000] = codes[2, 100] & 7
+    codes, lengths = codes.to(cuda), lengths.to(cuda)
+    limit = _scan_args(spec, lengths)[0]
+    if not carry:
+        return codes, lengths, limit, None, None
+    first = fused_scan_plain(
+        codes[:, :C].contiguous(), lengths.clamp(max=C), *_scan_args(spec, lengths),
+        C, C, spec.hash_width, spec.variant, emit_carry=True,
+    )
+    base0 = first[3][:, :, 2].sum(dim=1, dtype=torch.int32)
+    if spec.is_hpc and spec.l > 100:
+        assert int(base0[2]) < spec.l
+    return (codes[:, C:].contiguous(), (lengths - C).clamp(0, C).to(torch.int32), limit,
+            base0, first[4] - (C << 3))
+
+
+@pytest.mark.parametrize("mode,l,hash_width,variant,tile,carry", TILE_CASES)
+def test_tile_carries_kernel(cuda, mode, l, hash_width, variant, tile, carry):
+    """Passes 1-2 (tile summaries, then ranks and pending prefixes) against
+    tile_carries_plain, with and without a carry."""
+    spec = PipelineSpec(l=l, k=3, density=0.05, mode=mode, hash_width=hash_width,
+                        variant=variant)
+    codes, lengths, _, base0, carry0 = _tile_inputs(cuda, spec, carry)
+    before = build.launches["tile_carries"]
+    got = tile_carries(codes, lengths, l, tile, spec.is_hpc, base0, carry0)
+    want = tile_carries_plain(codes, lengths, l, tile, spec.is_hpc, base0, carry0)
+    torch.cuda.synchronize()
+    assert build.launches["tile_carries"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("mode,l,hash_width,variant,tile,carry", TILE_CASES)
+def test_fused_scan_kernel_tiles(cuda, mode, l, hash_width, variant, tile, carry):
+    """The whole K1 (three launches) against fused_scan_plain: valid slots,
+    counts and carry-out, bit for bit."""
+    spec = PipelineSpec(l=l, k=3, density=0.05, mode=mode, hash_width=hash_width,
+                        variant=variant)
+    codes, lengths, limit, base0, carry0 = _tile_inputs(cuda, spec, carry)
+    args = (codes, lengths, limit, *_scan_args(spec, lengths)[1:], tile,
+            min(tile, 512), hash_width, variant, base0, carry0, True)
+    got = fused_minimizer_scan(*args)
+    want = fused_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    assert int(got[3][:, :, 1].sum()) > 0
+    for g, w in zip(_hash_cols(got[:3]), _hash_cols(want[:3])):
+        assert torch.equal(valid_slots(g, got[3]), w)
+
+
+def test_fused_scan_kernel_many_tiles(cuda):
+    """12,500 tiles a read (tile 16): pass 2 keeps the ranks in device
+    memory and builds every prefix of a read in one block."""
+    spec = PipelineSpec(l=31, k=3, density=0.05, mode="hpc")
+    codes, lengths = _batch(12, B=2, L=200000, runs=True)
+    codes, lengths = codes.to(cuda), lengths.to(cuda)
+    got = tile_carries(codes, lengths, spec.l, 16, True)
+    want = tile_carries_plain(codes, lengths, spec.l, 16, True)
+    assert got[1].shape == (2, 12501, 31)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    args = (codes, lengths, *_scan_args(spec, lengths), 16, 16)
+    got = fused_minimizer_scan(*args, emit_carry=True)
+    want = fused_scan_plain(*args, emit_carry=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(valid_slots(g, got[3]), w)
+
+
+def test_fused_scan_kernel_long_row(cuda):
+    """A fresh [1, 2^25] row: 2048 tiles of one read, passes 1-2 and the
+    whole scan against their plain versions."""
+    n = 1 << 25
+    rng = np.random.default_rng(25)
+    codes = torch.from_numpy(with_keep_bits(rng.integers(0, 4, (1, n), dtype=np.uint8)))
+    codes = codes.to(cuda)
+    lengths = torch.full((1,), n, dtype=torch.int32, device=cuda)
+    spec = PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd")
+    got = tile_carries(codes, lengths, spec.l, 16384, True)
+    want = tile_carries_plain(codes, lengths, spec.l, 16384, True)
+    assert got[0].shape == (1, 2049)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    del want
+    args = (codes, lengths, *_scan_args(spec, lengths), 16384, spec.cap_per_tile(16384))
+    got = fused_minimizer_scan(*args, emit_carry=True)
+    want = fused_scan_plain(*args, emit_carry=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(valid_slots(g, got[3]), w)

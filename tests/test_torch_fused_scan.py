@@ -350,3 +350,156 @@ def test_carry_conversion_round_trips():
         pend = rng.integers(-(2**31), 2**31 - 1, (4, 8, 128)).astype(np.int32)
         back = carry_to_jax(*carry_from_jax(base0, pend, l))[1].reshape(4, -1)
         np.testing.assert_array_equal(back[:, 1024 - l :], pend.reshape(4, -1)[:, 1024 - l :])
+
+
+# ---- K1's tiles: passes 1-2 as per-tile carries ------------------------------
+
+
+def _seq_codes(seqs, L):
+    codes = np.full((len(seqs), L), XCODE_PAD, dtype=np.uint8)
+    lengths = np.zeros(len(seqs), dtype=np.int32)
+    for b, s in enumerate(seqs):
+        codes[b, : len(s)] = encode_xcodes(s[:L], "scalar")
+        lengths[b] = min(len(s), L)
+    return codes, lengths
+
+
+def _tile_case(name):
+    """-> (codes, lengths, spec, tile, base0, carry0): one row scanned
+    whole and tile by tile.  base0 / carry0 are None for a fresh read."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def rand(n, alphabet="ACGTN"):
+        return "".join(rng.choice(list(alphabet), size=n))
+
+    base0 = carry0 = None
+    if name == "tile1024":
+        codes, lengths = _batch(seed=41, L=4096)
+        return codes, lengths, PipelineSpec(l=31, k=2, density=0.05, mode="hpcsimd"), 1024, None, None
+    if name == "homopolymer":  # an 'A' run over tiles 3-6 of 256 bases
+        codes, lengths = _seq_codes([rand(700) + "A" * 1200 + rand(2100), rand(4000)], 4096)
+        spec = PipelineSpec(l=31, k=2, density=0.1, mode="hpc")
+        return codes, lengths, spec, 256, None, None
+    if name == "carry":
+        # Chunk 1 keeps ~100 elements (base0 < l = 200); chunk 2 opens with
+        # the same run over its first two tiles, so their pending prefixes
+        # and the third's come from the carry.
+        C = 2048
+        seqs = [rand(100) + "C" * (C - 100 + 600) + rand(C - 700), rand(2 * C - 50)]
+        full, lengths = _seq_codes(seqs, 2 * C)
+        spec = PipelineSpec(l=200, k=2, density=0.1, mode="hpcsimd")
+        *_, carry = port.fused_scan_plain(
+            torch.from_numpy(full[:, :C].copy()), torch.from_numpy(np.minimum(lengths, C)),
+            torch.from_numpy(_limit(lengths, spec)), spec.l, spec.bound,
+            spec.strict_threshold, True, False, C, C, emit_carry=True,
+        )
+        keep = port_hpc.hpc_keep_mask(torch.from_numpy(full[:, :C].copy()),
+                                      torch.from_numpy(np.minimum(lengths, C)))
+        base0 = keep.sum(dim=1, dtype=torch.int32).numpy()
+        assert base0[0] < spec.l
+        carry0 = (carry - (C << 3)).numpy()
+        return full[:, C:].copy(), (lengths - C).astype(np.int32), spec, 256, base0, carry0
+    if name == "ragged":  # reads ending mid-tile, and of length <= l
+        codes, lengths = _seq_codes([rand(31), rand(26), rand(1500), rand(700)], 2048)
+        return codes, lengths, PipelineSpec(l=31, k=2, density=0.5, mode="hpc"), 512, None, None
+    if name == "regular_limit":  # limit = length - l, a tile that divides nothing
+        codes, lengths = _batch(seed=43, B=3, L=2048)
+        return codes, lengths, PipelineSpec(l=31, k=2, density=0.1, mode="regular"), 300, None, None
+    if name == "l2":
+        codes, lengths = _batch(seed=44, L=2048)
+        return codes, lengths, PipelineSpec(l=2, k=2, density=0.1, mode="hpcsimd"), 100, None, None
+    if name == "l255":  # tiles shorter than l: a prefix spans several tiles
+        codes, lengths = _batch(seed=45, L=4096)
+        return codes, lengths, PipelineSpec(l=255, k=2, density=0.1, mode="hpc"), 128, None, None
+    width, variant, mode = {"w16": (16, "nthash1", "regular"), "w64": (64, "nthash1", "hpc"),
+                            "nthash2": (32, "nthash2", "hpcsimd")}[name]
+    codes, lengths = _batch(seed=width, L=2048)
+    spec = PipelineSpec(l=31, k=2, density=0.1, mode=mode, hash_width=width, variant=variant)
+    return codes, lengths, spec, 700 if width == 64 else 512, None, None
+
+
+def _jax_streams(codes, lengths, spec, base0, carry0):
+    """The reference's survivor streams (start, end, hash bits) per read and
+    its summed (raw, stream) counts, resumed from the port's carry."""
+    jb = jp = None
+    if base0 is not None:
+        jb, jp = carry_to_jax(torch.from_numpy(base0), torch.from_numpy(carry0))
+    st, en, hs, cnt = fused_minimizer_scan(
+        jnp.asarray(codes), jnp.asarray(lengths), jnp.asarray(_limit(lengths, spec)),
+        spec.l, spec.bound, spec.strict_threshold, spec.is_hpc, spec.mode == "hpc",
+        nslots=slots_for_density(spec.density), block_rows=8, interpret=True,
+        rows_out=default_rows_out(spec.density, 8), variant=spec.variant,
+        hash_width=spec.hash_width,
+        base0=None if jb is None else jnp.asarray(jb),
+        pend0=None if jp is None else jnp.asarray(jp),
+    )
+    cnt = np.asarray(cnt)
+    cols = [st, en, *(hs if spec.hash_width == 64 else (hs,))]
+    B, nt = cnt.shape[:2]
+    rows = [np.asarray(c).reshape(B, nt, -1) for c in cols]
+    return _tile_streams(rows, cnt), cnt[..., 1:].sum(axis=1)
+
+
+def _tile_streams(rows, cnt):
+    """Per read: the concatenated kept survivors, one tuple per survivor."""
+    out = []
+    for b in range(cnt.shape[0]):
+        got = []
+        for t in range(cnt.shape[1]):
+            n = int(cnt[b, t, 0])
+            got += zip(*(r[b, t, :n].tolist() for r in rows))
+        out.append(got)
+    return out
+
+
+TILE_CASES = ["tile1024", "homopolymer", "carry", "ragged", "regular_limit", "l2", "l255",
+              "w16", "w64", "nthash2"]
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_tile_carries_decompose_the_scan(case):
+    """Passes 1-2's plain version gives each tile its first rank and
+    pending prefix; the plain scan of each tile alone from that carry
+    (positions shifted by t * tile) equals the whole row's scan, slots,
+    counts and carry-out, and the whole row equals the reference."""
+    codes, lengths, spec, tile, base0, carry0 = _tile_case(case)
+    B, L = codes.shape
+    nt = -(-L // tile)
+    c, n, lim = (torch.from_numpy(a) for a in (codes, lengths, _limit(lengths, spec)))
+    b0 = None if base0 is None else torch.from_numpy(base0)
+    k0 = None if carry0 is None else torch.from_numpy(carry0)
+    wv = (spec.hash_width, spec.variant)
+    sargs = (lim, spec.l, spec.bound, spec.strict_threshold, spec.is_hpc, spec.mode == "hpc")
+    base, pending = port.tile_carries(c, n, spec.l, tile, spec.is_hpc, b0, k0)
+    assert base.shape == (B, nt + 1) and pending.shape == (B, nt + 1, spec.l)
+    assert base.dtype == pending.dtype == torch.int32
+    *whole, wcnt, wcarry = port.fused_scan_plain(c, n, *sargs, tile, tile, *wv, b0, k0, True)
+    whole = [whole[0], whole[1], *(whole[2] if spec.hash_width == 64 else (whole[2],))]
+    start0 = torch.zeros(B, dtype=torch.int32) if b0 is None else b0
+    assert torch.equal(base[:, 0], start0)
+    assert torch.equal(base[:, 1:] - base[:, :-1], wcnt[:, :, 2])
+    assert torch.equal(pending[:, nt], wcarry)
+    for t in range(nt):
+        lo, hi = t * tile, min(L, (t + 1) * tile)
+        *part, pcnt, pcarry = port.fused_scan_plain(
+            c[:, lo:hi].contiguous(), (n - lo).clamp(0, hi - lo).to(torch.int32), *sargs,
+            tile, tile, *wv, base[:, t].contiguous(), pending[:, t] - (lo << 3), True,
+        )
+        part = [part[0] + lo, part[1] + lo, *(part[2] if spec.hash_width == 64 else (part[2],))]
+        assert torch.equal(pcnt[:, 0], wcnt[:, t])
+        for got, want in zip(part, whole):
+            assert torch.equal(port.valid_slots(got, pcnt)[:, 0], want[:, t])
+        assert torch.equal(pcarry + (lo << 3), pending[:, t + 1])
+    rows = [w.numpy() for w in whole]
+    if spec.hash_width == 64:
+        rows = rows[:2] + [rows[2], rows[3]]  # (hi, lo), as the reference
+    jstreams, jsums = _jax_streams(codes, lengths, spec, base0, carry0)
+    assert _tile_streams(rows, wcnt.numpy()) == jstreams
+    np.testing.assert_array_equal(wcnt[..., 1:].sum(dim=1).numpy(), jsums)
+    assert int(wcnt[..., 1].sum()) > 0
+    if case == "homopolymer":
+        assert (wcnt[0, 3:7, 2] == 0).all()
+    if case == "carry":
+        assert (wcnt[0, :2, 2] == 0).all() and torch.equal(pending[0, 2], k0[0])
+    if case == "ragged":
+        assert int(wcnt[:2, :, 1].sum()) == 0
