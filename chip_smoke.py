@@ -27,9 +27,13 @@ In order, and any failure raises (exit code != 0):
   3. checks each kernel bit for bit against its plain PyTorch version at
      the paths' shapes: K1 fused scan (u32, and widths 16/64 and nthash2;
      and its passes 1-2, the tiles' ranks and pending prefixes, against
-     ``tile_carries_plain``), K2 slot compaction, K3 assembly (xorshift, murmur and identity mixes),
-     K4 masked compaction (the dense packed HPC compaction, m = L, and a
-     3-column minimizer compaction at a 1% mask);
+     ``tile_carries_plain``), K2 slot compaction (its kept-count form,
+     and the main path's form that reads K1's counts in place and writes
+     n_min and n_raw), K3 assembly (xorshift, murmur and identity mixes,
+     each also in the masked form that writes the k-min-mer fields, with
+     per-row counts 0, k-1, k, M and random), K4 masked compaction (the
+     dense packed HPC compaction, m = L, and a 3-column minimizer
+     compaction at a 1% mask);
   4. reproduces the 15 u32 and 20 u64 golden hashes
      (tests/data/ecoli.genome.100k.fa, regular, l=10, k=5, d=0.0001) on
      the card;
@@ -42,8 +46,10 @@ In order, and any failure raises (exit code != 0):
      block per read (before the tile-parallel design) and its bound, and
      every kernel's bound
      (the larger of its bytes over the HBM rate and its integer operations
-     over the peak rate); profiles 10 main-path steps (device busy time a
-     step, idle share, device time by kernel);
+     over the peak rate); K2's and K3's device time under the profiler
+     beside their times before their redesign; profiles 10 main-path
+     steps (device busy time a step, idle share, device kernels a step,
+     device time by kernel);
   7. checks K1 with a carry bit for bit against its plain version: chunk 2
      of [4, 2 x 4 Mbp] reads from the carry the kernel gave on chunk 1, for
      u32 hpcsimd l=31, u64 regular l=31 and nthash2 hpc l=201, and times
@@ -61,10 +67,12 @@ In order, and any failure raises (exit code != 0):
      its shapes: K1 with a carry (carry-out included) and its passes 1-2
      and K2 on a [1, 2^25] chunk, K3 on the read's whole [1, M] minimizer
      stream; K1's time per chunk beside the one-block-per-read time and
-     the bound.
+     the bound; K2 on the chunk with and without its fill (the long-read
+     driver's form), checked and timed.
 
-Then a summary line of K1 against its one-block-per-read design.  The
-second-to-last line
+Then summary lines of K1 against its one-block-per-read design and of K2
+and K3 against their designs before the redesign.  The second-to-last
+line
 is a JSON object with one entry per kernel (its launches on the paths,
 error, time, plain time, bound and what binds it; no PyTorch call computes
 any of these functions, so ``library_ms`` is null); the last is
@@ -125,6 +133,18 @@ K1_ONE_BLOCK_MS = {
     "carry nthash2 hpc l=201": 27.9222,
     "long-read chunk": 79.2172,
 }
+# K2's and K3's times in ms before their redesign (PERF.md, the K2 and K3
+# rows' earlier times): device time under the profiler, or CUDA events.
+K2_K3_BEFORE_MS = {
+    "slot_compact main, device": 0.0233,
+    "slot_compact main, events": 0.0424,
+    "slot_compact with hash_hi, events": 0.0764,
+    "slot_compact long-read chunk, device": 0.6433,
+    "assemble xorshift main, device": 0.0094,
+    "assemble xorshift main, events": 0.0335,
+    "assemble murmur u16, events": 0.0438,
+    "assemble identity u64, events": 0.0528,
+}
 
 
 def bound(nbytes, ops):
@@ -165,11 +185,12 @@ def main():
     from rust_seq2kminmers_torch import kminmers_list, kminmers_long, kminmers_long_batch
     from rust_seq2kminmers_torch.api import kminmers_batch
     from rust_seq2kminmers_torch.constants import CODE_PAD, with_keep_bits
-    from rust_seq2kminmers_torch.ops.assemble import assemble_plain
+    from rust_seq2kminmers_torch.ops.assemble import assemble_masked_plain, assemble_plain
     from rust_seq2kminmers_torch.ops.compact import compact
     from rust_seq2kminmers_torch.ops.cuda import build
     from rust_seq2kminmers_torch.ops.cuda.assemble_kernel import (
         assemble_kminmers_cuda,
+        assemble_masked_cuda,
     )
     from rust_seq2kminmers_torch.ops.cuda.fused_scan import (
         TILE,
@@ -187,6 +208,8 @@ def main():
     from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
     from rust_seq2kminmers_torch.ops.cuda.slot_compact import (
         slot_compact,
+        slot_compact_counts,
+        slot_compact_counts_plain,
         slot_compact_plain,
     )
     from rust_seq2kminmers_torch.ops.hpc import hpc_keep_mask
@@ -278,11 +301,25 @@ def main():
     kept = k1[3][:, :, 0].contiguous()
     k2 = slot_compact(*k1[:3], kept, m_cap)
     k2p = slot_compact_plain(*k1[:3], kept, m_cap)
-    record("slot_compact", "u32", max_abs_err([*k2[0], k2[1]], [*k2p[0], k2p[1]]))
+    record("slot_compact", "u32, kept form", max_abs_err([*k2[0], k2[1]], [*k2p[0], k2p[1]]))
+    k2c = slot_compact_counts(*k1[:3], k1[3], m_cap)
+    k2cp = slot_compact_counts_plain(*k1[:3], k1[3], m_cap)
+    record("slot_compact", "u32, K1's counts in place -> n_min, n_raw (the main path's form)",
+           max_abs_err([*k2c[0], *k2c[1:]], [*k2cp[0], *k2cp[1:]]))
     min_hash = k2[0][2]
+    n_main = k2c[1]  # the stream's counts, for K3's masked form
     k3 = assemble_kminmers_cuda(min_hash, spec.k)
     k3p = assemble_plain(min_hash, spec.k)
     record("assemble", "xorshift u32", max_abs_err([*k3[0], k3[1]], [*k3p[0], k3p[1]]))
+    # Per-row counts 0, k-1, k, M, then random: every masking edge.
+    g_n = torch.Generator(device=dev).manual_seed(SEED)
+    n_var = torch.randint(0, m_cap + 1, (B,), generator=g_n, device=dev, dtype=torch.int32)
+    n_var[:4] = torch.tensor([0, spec.k - 1, spec.k, m_cap], dtype=torch.int32)
+    pos_main = (k2[0][0], k2[0][1])
+    for what, n_rows in (("the stream's counts", n_main), ("counts 0, k-1, k, M, random", n_var)):
+        got = assemble_masked_cuda(min_hash, spec.k, 32, None, n_rows, *pos_main)
+        want = assemble_masked_plain(min_hash, spec.k, 32, None, n_rows, *pos_main)
+        record("assemble", f"masked xorshift u32, {what}", max_abs_err(got, want))
 
     # K1 at the other widths (per tile cap = the tile: lossless), then K2
     # with the hi column and K3 on the width-64 stream.
@@ -312,10 +349,15 @@ def main():
         64: (lo64, hi64),
     }
     for w, (lo, hi) in mix_inputs.items():
+        mix = "murmur u16" if w == 16 else "identity u64"
         got = assemble_kminmers_cuda(lo, spec.k, w, hi)
         want = assemble_plain(lo, spec.k, w, hi)
-        record("assemble", f"{'murmur u16' if w == 16 else 'identity u64'}",
-               max_abs_err([*got[0], got[1]], [*want[0], want[1]]))
+        record("assemble", mix, max_abs_err([*got[0], got[1]], [*want[0], want[1]]))
+        pos = pos_main if w == 16 else k2_64[0][:2]
+        got = assemble_masked_cuda(lo, spec.k, w, hi, n_var, *pos)
+        want = assemble_masked_plain(lo, spec.k, w, hi, n_var, *pos)
+        record("assemble", f"masked {mix}, counts 0, k-1, k, M, random",
+               max_abs_err(got, want))
 
     # K4 (a): the dense packed HPC compaction, one column, m = L.
     keep = hpc_keep_mask(codes, lengths)
@@ -424,15 +466,20 @@ def main():
     k1_runs = [
         fused_minimizer_scan(c, lengths, limit, *scan_args, TILE, cap) for c in pool
     ]
-    kept_runs = [r[3][:, :, 0].contiguous() for r in k1_runs]
+    # K2 and K3 as the main path calls them: K2 reads K1's counts in place,
+    # K3 writes the masked k-min-mer fields.
+    def k2_main(i):
+        return slot_compact_counts(*k1_runs[i % 2][:3], k1_runs[i % 2][3], m_cap)
+
+    def k3_main(i):
+        return assemble_masked_cuda(min_hash, spec.k, 32, None, n_main, *pos_main)
+
     ms = {
         "fused_scan": time_ms(
             lambda i: fused_minimizer_scan(
                 pool[i % 2], lengths, limit, *scan_args, TILE, cap), 20),
-        "slot_compact": time_ms(
-            lambda i: slot_compact(*k1_runs[i % 2][:3], kept_runs[i % 2], m_cap),
-            50),
-        "assemble": time_ms(lambda i: assemble_kminmers_cuda(min_hash, spec.k), 50),
+        "slot_compact": time_ms(k2_main, 50),
+        "assemble": time_ms(k3_main, 50),
         "masked_compact": time_ms(lambda i: masked_compact(*hpc_args), 20),
     }
     plain_ms = {
@@ -440,13 +487,19 @@ def main():
             lambda i: fused_scan_plain(
                 pool[i % 2], lengths, limit, *scan_args, TILE, cap), 3, 1),
         "slot_compact": time_ms(
-            lambda i: slot_compact_plain(
-                *k1_runs[i % 2][:3], kept_runs[i % 2], m_cap), 10),
-        "assemble": time_ms(lambda i: assemble_plain(min_hash, spec.k), 10),
+            lambda i: slot_compact_counts_plain(
+                *k1_runs[i % 2][:3], k1_runs[i % 2][3], m_cap), 10),
+        "assemble": time_ms(
+            lambda i: assemble_masked_plain(min_hash, spec.k, 32, None, n_main, *pos_main),
+            10),
         "masked_compact": time_ms(lambda i: compact(*hpc_args), 5, 1),
     }
     for name in ms:
-        log(f"{name} on {card}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms")
+        log(f"{name} on {card}: kernel {ms[name]:.4f} ms (CUDA events), plain "
+            f"{plain_ms[name]:.4f} ms")
+    # K2's and K3's new times beside the same measurement before their
+    # redesign: (what, ms now, key of K2_K3_BEFORE_MS).
+    k23_seen = [("slot_compact main, events", ms["slot_compact"], "slot_compact main, events")]
 
     # K1 per instance beside its one-block-per-read time and the bound; the
     # bound of every kernel at the shape its `ms` was timed.
@@ -465,22 +518,84 @@ def main():
         k1_line(f"width {w} {v} {mode} l=31",
                 time_ms(lambda i, a=args: fused_minimizer_scan(*a), 20),
                 k1_bound(args[0], got[3], 31, w, False))
-    survivors = int(kept.sum())
-    bounds["slot_compact"] = bound(
-        survivors * 12 + kept.numel() * 4 + B * m_cap * 12 + B * 4, 3 * survivors)
+
+    def k2_bound(kept_t, m, fill):
+        """K2's least work: each kept survivor's 3 columns read, the kept and
+        raw counts read, and written the m slots of 3 columns (with the fill;
+        else the survivors) and n_min, n_raw."""
+        surv = int(kept_t.sum())
+        rows, nt_ = kept_t.shape
+        written = rows * m if fill else surv
+        return bound(surv * 12 + rows * nt_ * 8 + written * 12 + rows * 8, 3 * surv)
+
+    bounds["slot_compact"] = k2_bound(kept, m_cap, True)
+    # K3 masked: the valid rows' words, and the valid windows' starts and
+    # ends, read; 17 bytes a window and n_kminmers written; a mix (12
+    # operations) a word and a roll, min and compare (16) a valid window.
     M = min_hash.shape[1]
     nk = M - spec.k + 1
-    bounds["assemble"] = bound(B * M * 4 + B * nk * 9, B * M * 12 + B * nk * (4 * spec.k + 4))
+    n_words = int(n_main.sum())
+    n_valid = int((n_main - (spec.k - 1)).clamp(min=0).sum())
+    bounds["assemble"] = bound(n_words * 4 + n_valid * 8 + B * nk * 17 + B * 8,
+                               12 * n_words + 16 * n_valid)
     n_hpc = int(hpc_args[0].sum())
     bounds["masked_compact"] = bound(B * L + n_hpc * 4 + B * L * 4 + B * 4, 2 * B * L)
     for name in bounds:
         log(f"bound of {name} on these inputs: {bounds[name][0]:.4f} ms by {bounds[name][1]}")
 
-    # The main path's device time: 10 steps under the profiler; the busy
-    # time is the union of the kernels' and copies' spans.
+    # Device time under the profiler.  In key_averages() an aten:: row
+    # repeats its kernels' time, so only the kernels' own events are summed.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    k2_keys = ("slot_compact_offsets", "slot_compact_copy")
+    k3_keys = ("assemble_kernel",)
+
+    def device_ms(fn, keys, reps=20):
+        """(device ms, kernels) a call of fn, over the kernels whose names
+        hold one of ``keys``, under the profiler after a warm-up call."""
+        fn(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        evs = [e for e in p.events() if e.device_type == DeviceType.CUDA
+               and any(k in e.name for k in keys)]
+        check(evs, f"the profiler recorded no kernel named {keys}")
+        return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / reps, len(evs) / reps
+
+    dev_ms = {
+        "slot_compact main": (k2_main, k2_keys),
+        "slot_compact with hash_hi": (
+            lambda i: slot_compact(*got64[:3], kept64, m64), k2_keys),
+        "assemble masked xorshift main": (k3_main, k3_keys),
+        "assemble xorshift main, unmasked": (
+            lambda i: assemble_kminmers_cuda(min_hash, spec.k), k3_keys),
+        "assemble masked murmur u16": (lambda i: assemble_masked_cuda(
+            mix_inputs[16][0], spec.k, 16, None, n_main, *pos_main), k3_keys),
+        "assemble masked identity u64": (lambda i: assemble_masked_cuda(
+            lo64, spec.k, 64, hi64, n_var, *k2_64[0][:2]), k3_keys),
+    }
+    for what, (fn, keys) in dev_ms.items():
+        dev_ms[what] = device_ms(fn, keys)
+        log(f"{what} on {card}: device {dev_ms[what][0]:.4f} ms a call "
+            f"({dev_ms[what][1]:.0f} kernels a call; profiler)")
+    k23_seen += [
+        ("slot_compact main, device", dev_ms["slot_compact main"][0],
+         "slot_compact main, device"),
+        ("assemble xorshift main, device, unmasked",
+         dev_ms["assemble xorshift main, unmasked"][0], "assemble xorshift main, device"),
+        ("assemble xorshift main, device, masked (the main path's form)",
+         dev_ms["assemble masked xorshift main"][0], "assemble xorshift main, device"),
+    ]
+    # The kernels' line reports K2's and K3's device time: CUDA events
+    # around their back-to-back launches time the host at this size.
+    ms["slot_compact"] = dev_ms["slot_compact main"][0]
+    ms["assemble"] = dev_ms["assemble masked xorshift main"][0]
+
+    # The main path's device time: 10 steps under the profiler; the busy
+    # time is the union of the kernels' and copies' spans.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tr:
         t0 = time.perf_counter()
         for i in range(10):
@@ -492,15 +607,21 @@ def main():
     busy, _ = device_busy(dev_events)
     per_kernel = {}
     for e in dev_events:
-        key = next((k for k in ("tile_summary", "tile_carries", "scan_kernel", "slot_compact",
-                                "assemble") if k in e.name), "other")
+        key = next((k for k in ("tile_summary", "tile_carries", "scan_kernel", *k2_keys,
+                                *k3_keys) if k in e.name), "other")
         per_kernel[key] = per_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e4
+    n_kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev_events)
     log(f"main path under the profiler on {card}: device busy {busy * 100:.4f} ms a step "
-        f"of {wall * 100:.4f} ms wall (idle share {1 - busy / wall:.4f}); device ms a step "
+        f"of {wall * 100:.4f} ms wall (idle share {1 - busy / wall:.4f}); "
+        f"{n_kernels / 10:.1f} device kernels a step ({len(dev_events) / 10:.1f} device "
+        "events); device ms a step "
         + ", ".join(f"{k} {v:.4f}" for k, v in per_kernel.items()))
     extra = {
         "masked_compact (b) 3 columns, 1% mask": (
             lambda i: masked_compact(*min_args), lambda i: compact(*min_args)),
+        "assemble xorshift u32, unmasked": (
+            lambda i: assemble_kminmers_cuda(min_hash, spec.k),
+            lambda i: assemble_plain(min_hash, spec.k)),
         "assemble murmur u16": (
             lambda i: assemble_kminmers_cuda(mix_inputs[16][0], spec.k, 16),
             lambda i: assemble_plain(mix_inputs[16][0], spec.k, 16)),
@@ -514,9 +635,16 @@ def main():
     for (w, v), (args, _) in width_scans.items():
         extra[f"fused_scan plain, width {w} {v}"] = (
             None, lambda i, a=args: fused_scan_plain(*a))
+    before = {"assemble xorshift u32, unmasked": "assemble xorshift main, events",
+              "assemble murmur u16": "assemble murmur u16, events",
+              "assemble identity u64": "assemble identity u64, events",
+              "slot_compact with hash_hi": "slot_compact with hash_hi, events"}
     for what, (kern, plain) in extra.items():
-        kern_ms = "" if kern is None else f"kernel {time_ms(kern, 20):.4f} ms, "
-        log(f"{what} on {card}: {kern_ms}plain {time_ms(plain, 3, 1):.4f} ms")
+        kern_ms = None if kern is None else time_ms(kern, 20)
+        kern_txt = "" if kern is None else f"kernel {kern_ms:.4f} ms, "
+        log(f"{what} on {card}: {kern_txt}plain {time_ms(plain, 3, 1):.4f} ms")
+        if what in before:
+            k23_seen.append((f"{what}, events", kern_ms, before[what]))
 
     # 7. K1 with a carry: chunk 2 of each read from the kernel's chunk-1 carry
     C = 1 << 22
@@ -691,9 +819,29 @@ def main():
     kept_l = got[3][:, :, 0].contiguous()
     got2 = slot_compact(*got[:3], kept_l, lm_cap)
     want2 = slot_compact_plain(*got[:3], kept_l, lm_cap)
-    record("slot_compact", f"long read: chunk 2 of [1, 2^25] into m = {lm_cap}",
+    record("slot_compact", f"long read: chunk 2 of [1, 2^25] into m = {lm_cap}, kept form",
            max_abs_err([*got2[0], got2[1]], [*want2[0], want2[1]]))
     check(int(got2[1][0]) > 0, "the long-read chunk kept no minimizer")
+    # K2's counts form on the chunk, with its fill and without (the
+    # long-read driver's form, whose slots past n_min are undefined).
+    want_c = slot_compact_counts_plain(*got[:3], got[3], lm_cap)
+    valid_l = torch.arange(lm_cap, device=dev)[None, :] < want_c[1][:, None]
+    for fill in (True, False):
+        what = "with its fill" if fill else "without its fill (the long-read driver's form)"
+        got_c = slot_compact_counts(*got[:3], got[3], lm_cap, fill)
+        cols = [c if fill else torch.where(valid_l, c, 0) for c in got_c[0]]
+        record("slot_compact", f"long read: chunk 2 of [1, 2^25], counts form, {what}",
+               max_abs_err([*cols, *got_c[1:]], [*want_c[0], *want_c[1:]]))
+        t_dev, _ = device_ms(
+            lambda i, f=fill: slot_compact_counts(*got[:3], got[3], lm_cap, f), k2_keys)
+        t_ev = time_ms(lambda i, f=fill: slot_compact_counts(*got[:3], got[3], lm_cap, f), 20)
+        bnd = k2_bound(kept_l, lm_cap, fill)
+        log(f"K2 on the long-read chunk [1, 2^25] ({kept_l.shape[1]} tiles, m = {lm_cap}) "
+            f"{what} on {card}: device {t_dev:.4f} ms (profiler), {t_ev:.4f} ms (CUDA "
+            f"events); bound {bnd[0]:.4f} ms by {bnd[1]}")
+        k23_seen.append((f"slot_compact long-read chunk, device, {what}", t_dev,
+                         "slot_compact long-read chunk, device"))
+    del got_c, want_c, cols, valid_l
     mh = minimizer_stream_long(seq, lspec, chunk=1 << 25, device=dev)[2]
     check(mh.shape[0] - (lspec.k - 1) == n_rec, "long-read stream length")
     mh_d = torch.from_numpy(mh.view(np.int32)[None, :].copy()).to(dev)
@@ -707,6 +855,9 @@ def main():
         f"{what} {t:.4f} ms (one block per read {K1_ONE_BLOCK_MS[what]}, bound "
         f"{bnd[0]:.4f} by {bnd[1]})"
         for what, t, bnd in k1_seen))
+    log("K2 and K3 against their designs before the redesign, on " + card + ": "
+        + "; ".join(f"{what} {t:.4f} ms (before: {K2_K3_BEFORE_MS[key]})"
+                    for what, t, key in k23_seen))
     print(json.dumps({"kernels": [
         {
             "name": name,

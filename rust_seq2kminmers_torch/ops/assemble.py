@@ -59,3 +59,25 @@ def assemble_plain(min_hash, k: int, hash_width: int = 32, min_hash_hi=None):
     if hash_width == 16:
         return assemble_kminmers_mixed(mix64_murmur_from_u16(min_hash), k)
     return assemble_kminmers_mixed(join_u64(min_hash_hi, min_hash), k)
+
+
+def assemble_masked_plain(
+    min_hash, k: int, hash_width: int, min_hash_hi, n_min, min_start, min_end
+):
+    """The assembly masked to each row's count -> (hash_hi, hash_lo, start,
+    end, rev, n_kminmers), the k-min-mer fields of ``KminmerBatch``: window
+    w < n_kminmers = max(n_min - (k-1), 0) keeps its hash and rev, with
+    start = min_start[w] and end = min_end[w + k - 1]; later windows are
+    zero (false).  The plain version of ``assemble_masked_cuda``."""
+    (kh_hi, kh_lo), rev = assemble_plain(min_hash, k, hash_width, min_hash_hi)
+    mk = min_hash.shape[1] - k + 1
+    n_km = torch.clamp(n_min - (k - 1), min=0)
+    valid = torch.arange(mk, device=min_hash.device)[None, :] < n_km[:, None]
+    return (
+        torch.where(valid, kh_hi, 0),
+        torch.where(valid, kh_lo, 0),
+        torch.where(valid, min_start[:, :mk], 0),
+        torch.where(valid, min_end[:, k - 1 :], 0),
+        valid & rev,
+        n_km,
+    )

@@ -5,15 +5,17 @@ A read is cut into ``chunk``-base pieces (a multiple of 1024).  Each chunk
 is one K1 launch (``ops/cuda/fused_scan.py``) that resumes from the carry
 of the chunk before it: the global kept rank and the last l kept elements,
 packed ``(pos << 3) | code`` with chunk-relative positions.  K2 then
-compacts the chunk's survivors into its minimizer stream.  The carry stays
+compacts the chunk's survivors into its minimizer stream, and writes the
+chunk's counts into a device tensor; the slots past them are left
+unwritten, as phase D reads only the valid prefixes.  The carry stays
 on the device from launch to launch, and many reads ride the same
 ``[B, chunk]`` launches with a ``[B]``-shaped carry.
 
 The phases of ``minimizer_stream_long_batch``:
 
   A. every chunk is staged on the host into pinned buffers, copied to
-     the device on a side stream and dispatched, with no host sync; each
-     chunk's (n_min, n_raw) goes into one device tensor;
+     the device on a side stream and dispatched, with no host sync; K2
+     writes each chunk's (n_min, n_raw) into one device tensor;
   B. one fetch of those counts;
   C. chunks that lost survivors (a tile's or the stream's capacity) rerun
      from their saved carry-in on ``api.rescue_spec``: every base of a tile
@@ -39,7 +41,7 @@ from ..api import _device, rescue_spec
 from ..constants import XCODE_PAD, encode_xcodes, family_of_mode
 from .cuda.assemble_kernel import assemble_kminmers_cuda
 from .cuda.fused_scan import TILE, fused_minimizer_scan
-from .cuda.slot_compact import slot_compact
+from .cuda.slot_compact import slot_compact_counts
 from .pipeline import PipelineSpec
 
 # 32 Mbp a launch: K1's positions need chunk < 2^28, and the chunk's
@@ -55,9 +57,9 @@ _STAGES = 3  # pinned staging buffers in flight
 
 def _chunk_step(spec: PipelineSpec, chunk: int, cap: int, m_cap: int):
     """One chunk: K1 with carry in and out, then K2's compaction of the
-    chunk's survivors into [B, m_cap].  (n_min, n_raw) go into row ``ci``
-    of the device tensor ``cacc`` (int32[nchunks, B, 2]), so the host
-    never waits inside the chunk loop."""
+    chunk's survivors into [B, m_cap], valid up to n_min.  K2 writes
+    (n_min, n_raw) into ``cacc[ci]`` (cacc int32[nchunks, 2, B] on the
+    device), so the host never waits inside the chunk loop."""
     l = spec.l
 
     def step(codes, length_local, limit, base0, carry0, cacc, ci):
@@ -66,11 +68,9 @@ def _chunk_step(spec: PipelineSpec, chunk: int, cap: int, m_cap: int):
             spec.is_hpc, spec.mode == "hpc", TILE, cap, spec.hash_width,
             spec.variant, base0=base0, carry0=carry0, emit_carry=True,
         )
-        (mst, men, mhs), n_slotted = slot_compact(
-            st, en, hs, counts[:, :, 0].contiguous(), m_cap
+        (mst, men, mhs), _, _ = slot_compact_counts(
+            st, en, hs, counts, m_cap, fill=False, n_min=cacc[ci, 0], n_raw=cacc[ci, 1]
         )
-        cacc[ci, :, 0] = torch.clamp(n_slotted, max=m_cap)
-        cacc[ci, :, 1] = counts[:, :, 1].sum(dim=1, dtype=torch.int32)
         base_next = base0 + counts[:, :, 2].sum(dim=1, dtype=torch.int32)
         # Rebase the carried positions to the next chunk's origin: on the
         # packed (pos << 3) | code a shift of position is a subtraction.
@@ -178,7 +178,7 @@ def minimizer_stream_long_batch(
     # that overflowed can be rerun later from its saved carry-in.
     base = torch.zeros(B, dtype=torch.int32, device=device)
     carry = torch.zeros((B, l), dtype=torch.int32, device=device)
-    cacc = torch.zeros((nchunks, B, 2), dtype=torch.int32, device=device)
+    cacc = torch.empty((nchunks, 2, B), dtype=torch.int32, device=device)
     staging = _Staging(rows, chunk, device)
     per_chunk = []
     for ci in range(nchunks):
@@ -191,7 +191,7 @@ def minimizer_stream_long_batch(
 
     # Phase B: one fetch of the counts.
     counts = cacc.cpu().numpy()
-    nm, nr = counts[:, :, 0].copy(), counts[:, :, 1]
+    nm, nr = counts[:, 0].copy(), counts[:, 1]
 
     # Phase C: rerun the chunks that lost survivors, on the lossless tile
     # capacity with M raised to the largest raw count.
@@ -201,18 +201,18 @@ def minimizer_stream_long_batch(
         rstep = _chunk_step(
             rspec, chunk, rspec.cap_per_tile(TILE), rspec.capacity_for(chunk)
         )
-        rcacc = torch.zeros_like(cacc)
+        rcacc = torch.empty_like(cacc)
         for ci in bad:
             b0, c0 = per_chunk[ci][3]
             codes = torch.from_numpy(staging.host_array(int(ci))).to(device)
             per_chunk[ci][:3] = rstep(codes, local_d[ci], limit, b0, c0, rcacc, int(ci))[:3]
         rch = rcacc.cpu().numpy()
         for ci in bad:
-            if (rch[ci, :, 0] < rch[ci, :, 1]).any():
+            if (rch[ci, 0] < rch[ci, 1]).any():
                 raise RuntimeError(
-                    f"chunk {ci} overflow not resolved ({rch[ci, :, 0]} < {rch[ci, :, 1]})"
+                    f"chunk {ci} overflow not resolved ({rch[ci, 0]} < {rch[ci, 1]})"
                 )
-            nm[ci] = rch[ci, :, 0]
+            nm[ci] = rch[ci, 0]
 
     # Phase D: the valid prefixes only, gathered on the device, one copy.
     def columns(c):

@@ -7,11 +7,11 @@ when 2 <= l <= 255, the general path otherwise (l = 1, or l > 255).
       codes uint8[B, L], lengths int32[B]
       -> K1 fused scan: HPC keep, canonical NtHash, density select,
          per-tile survivor pack                  (ops/cuda/fused_scan.py)
-      -> K2 slot compaction into the ordered minimizer stream [B, m]
-                                                 (ops/cuda/slot_compact.py)
-      -> K3 mix to u64 + k-window canonical hash in minimizer space
+      -> K2 slot compaction into the ordered minimizer stream [B, m],
+         with its counts n_min and n_raw         (ops/cuda/slot_compact.py)
+      -> K3 mix to u64 + k-window canonical hash in minimizer space,
+         written as the k-min-mer fields, zero past each read's count
                                                  (ops/cuda/assemble_kernel.py)
-      -> masking of the windows past each read's count
 
     general path:
       -> (hpc modes) K4 compaction of the kept bases, packed with their
@@ -20,7 +20,7 @@ when 2 <= l <= 255, the general path otherwise (l = 1, or l > 255).
                                                  (ops/nthash.py)
       -> K4 compaction of (start, end, hash[, hash_hi]) into [B, m]
                                                  (ops/cuda/masked_compact.py)
-      -> K3, and the same masking
+      -> K3, as on the fused path
 
 The hash is NtHash1 at width 16, 32 or 64, or the NtHash2-hybrid 31-bit
 variant; the minimizer hashes mix to u64 as murmur (16), xorshift (32,
@@ -53,9 +53,9 @@ from ..constants import (
     hash_bound_simd_u32,
     hash_bound_u32,
 )
-from .assemble import assemble_plain
+from .assemble import assemble_masked_plain
 from .compact import compact
-from .cuda.assemble_kernel import assemble_kminmers_cuda
+from .cuda.assemble_kernel import assemble_masked_cuda
 from .cuda.fused_scan import (
     MAX_L,
     TILE,
@@ -64,7 +64,7 @@ from .cuda.fused_scan import (
     fused_scan_plain,
 )
 from .cuda.masked_compact import masked_compact
-from .cuda.slot_compact import slot_compact, slot_compact_plain
+from .cuda.slot_compact import slot_compact_counts, slot_compact_counts_plain
 from .hpc import hpc_compress
 from .nthash import below_bound, canonical_nthash
 from .u64 import i32_bits
@@ -184,8 +184,8 @@ class _Stages(NamedTuple):
     assemble: object  # K3
 
 
-_KERNELS = _Stages(fused_minimizer_scan, slot_compact, masked_compact, assemble_kminmers_cuda)
-_PLAIN = _Stages(fused_scan_plain, slot_compact_plain, compact, assemble_plain)
+_KERNELS = _Stages(fused_minimizer_scan, slot_compact_counts, masked_compact, assemble_masked_cuda)
+_PLAIN = _Stages(fused_scan_plain, slot_compact_counts_plain, compact, assemble_masked_plain)
 
 
 def kminmer_pipeline(
@@ -236,12 +236,9 @@ def _fused_minimizers(codes, lengths, spec, stages, m_cap):
         spec.is_hpc, spec.mode == "hpc", TILE, spec.cap_per_tile(TILE),
         spec.hash_width, spec.variant,
     )
-    n_raw = counts[:, :, 1].sum(dim=1, dtype=torch.int32)
-    (min_start, min_end, min_hash), n_slotted = stages.stitch(
-        st, en, hs, counts[:, :, 0].contiguous(), m_cap
-    )
+    (min_start, min_end, min_hash), n_min, n_raw = stages.stitch(st, en, hs, counts, m_cap)
     min_hash_hi, min_hash = min_hash if isinstance(min_hash, tuple) else (None, min_hash)
-    return min_start, min_end, min_hash, min_hash_hi, torch.clamp(n_slotted, max=m_cap), n_raw
+    return min_start, min_end, min_hash, min_hash_hi, n_min, n_raw
 
 
 def _general_minimizers(codes, lengths, spec, stages, m_cap):
@@ -288,19 +285,16 @@ def _general_minimizers(codes, lengths, spec, stages, m_cap):
 
 
 def _assemble(spec, stages, min_start, min_end, min_hash, min_hash_hi, n_min, n_raw):
-    """K3 and the masking of the windows past each read's count."""
-    k = spec.k
-    width = spec.hash_width
-    (kh_hi, kh_lo), rev = stages.assemble(min_hash, k, width, min_hash_hi)
-    mk = min_hash.shape[1] - k + 1
-    n_km = torch.clamp(n_min - (k - 1), min=0)
-    km_valid = torch.arange(mk, device=min_hash.device)[None, :] < n_km[:, None]
+    """K3: the k-min-mer fields, zero past each read's count."""
+    hash_hi, hash_lo, start, end, rev, n_km = stages.assemble(
+        min_hash, spec.k, spec.hash_width, min_hash_hi, n_min, min_start, min_end
+    )
     return KminmerBatch(
-        hash_hi=torch.where(km_valid, kh_hi, 0),
-        hash_lo=torch.where(km_valid, kh_lo, 0),
-        start=torch.where(km_valid, min_start[:, :mk], 0),
-        end=torch.where(km_valid, min_end[:, k - 1 :], 0),
-        rev=km_valid & rev,
+        hash_hi=hash_hi,
+        hash_lo=hash_lo,
+        start=start,
+        end=end,
+        rev=rev,
         n_kminmers=n_km,
         min_hash=min_hash,
         min_hash_hi=torch.zeros_like(min_hash) if min_hash_hi is None else min_hash_hi,

@@ -18,10 +18,17 @@ import torch
 
 from rust_seq2kminmers_torch import kminmers_list, kminmers_long, kminmers_long_batch
 from rust_seq2kminmers_torch.constants import XCODE_PAD, with_keep_bits
-from rust_seq2kminmers_torch.ops.assemble import assemble_kminmers, assemble_plain
+from rust_seq2kminmers_torch.ops.assemble import (
+    assemble_kminmers,
+    assemble_masked_plain,
+    assemble_plain,
+)
 from rust_seq2kminmers_torch.ops.compact import compact
 from rust_seq2kminmers_torch.ops.cuda import build
-from rust_seq2kminmers_torch.ops.cuda.assemble_kernel import assemble_kminmers_cuda
+from rust_seq2kminmers_torch.ops.cuda.assemble_kernel import (
+    assemble_kminmers_cuda,
+    assemble_masked_cuda,
+)
 from rust_seq2kminmers_torch.ops.cuda.fused_scan import (
     fused_minimizer_scan,
     fused_scan_plain,
@@ -38,6 +45,8 @@ from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
 from rust_seq2kminmers_torch.ops.hpc import hpc_compress
 from rust_seq2kminmers_torch.ops.cuda.slot_compact import (
     slot_compact,
+    slot_compact_counts,
+    slot_compact_counts_plain,
     slot_compact_plain,
 )
 from rust_seq2kminmers_torch.ops.pipeline import (
@@ -237,6 +246,86 @@ def test_assemble_kernel_mixes(cuda, hash_width, k):
     (whi, wlo), wrev = assemble_plain(lo, k, hash_width, hi)
     torch.cuda.synchronize()
     assert torch.equal(ghi, whi) and torch.equal(glo, wlo) and torch.equal(grev, wrev)
+
+
+def _survivor_rows(cuda, seed, B, nt, cap, wide):
+    """Random survivor rows [B, nt, cap] and K1-shaped counts [B, nt, 3]:
+    a fifth of the tiles keep nothing, a seventh claim more than cap."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(-(2**31), 2**31, (4 if wide else 3, B, nt, cap), dtype=np.int64)
+    cols = torch.from_numpy(cols.astype(np.int32)).to(cuda)
+    kept = rng.integers(0, cap + 1, (B, nt))
+    kept[:, ::5] = 0
+    kept[:, 1::7] = cap + 3
+    raw = kept + rng.integers(0, 3, (B, nt))
+    counts = np.stack([kept, raw, rng.integers(0, 1 << 14, (B, nt))], axis=2)
+    hsh = (cols[3], cols[2]) if wide else cols[2]
+    return cols[0], cols[1], hsh, torch.from_numpy(counts.astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize(
+    "B,nt,cap,m,wide,fill",
+    [(32, 64, 640, 21227, False, True), (32, 64, 640, 21227, True, True),
+     (1, 2048, 640, 1342305, False, True), (1, 2048, 640, 1342305, False, False),
+     (1, 2048, 640, 1342305, True, False), (3, 1, 128, 50, False, True),
+     (3, 1, 128, 1000, True, False), (0, 5, 128, 100, False, True),
+     (4, 50, 256, 1001, False, True), (4, 50, 256, 1001, True, False),
+     (2, 3125, 16, 3000, False, True)],
+    ids=["main", "main-hi", "long-chunk", "long-chunk-nofill", "long-chunk-hi-nofill",
+         "one-tile", "one-tile-hi-nofill", "B0", "m-below-total", "m-below-total-hi-nofill",
+         "3125-tiles"],
+)
+def test_slot_compact_counts_kernel(cuda, B, nt, cap, m, wide, fill):
+    """K2's counts form (counts read at stride 3, n_min and n_raw written)
+    against its plain version, bit for bit: the main-path shape, a
+    long-read chunk's 2048 tiles, one tile, B = 0, m below the total, the
+    hi column; without the fill only the valid prefixes are defined.  Then
+    the kept form on the same rows, one launch a call each."""
+    st, en, hs, counts = _survivor_rows(cuda, nt + m, B, nt, cap, wide)
+    out = torch.full((2, B), -7, dtype=torch.int32, device=cuda)
+    before = build.launches["slot_compact"]
+    got = slot_compact_counts(st, en, hs, counts, m, fill, n_min=out[0], n_raw=out[1])
+    want = slot_compact_counts_plain(st, en, hs, counts, m)
+    torch.cuda.synchronize()
+    assert build.launches["slot_compact"] == before + (B > 0)
+    assert got[1].data_ptr() == out[0].data_ptr() and got[2].data_ptr() == out[1].data_ptr()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    valid = torch.arange(m, device=cuda)[None, :] < want[1][:, None]
+    for g, w in zip(_hash_cols(got[0]), _hash_cols(want[0])):
+        assert torch.equal(g if fill else torch.where(valid, g, 0), w)
+    got_k = slot_compact(st, en, hs, counts[:, :, 0].contiguous(), m)
+    want_k = slot_compact_plain(st, en, hs, counts[:, :, 0].contiguous(), m)
+    torch.cuda.synchronize()
+    assert build.launches["slot_compact"] == before + 2 * (B > 0)
+    assert torch.equal(got_k[1], want_k[1])
+    for g, w in zip(_hash_cols(got_k[0]), _hash_cols(want_k[0])):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("hash_width", [16, 32, 64])
+@pytest.mark.parametrize("B,M,k", [(32, 21227, 5), (4, 5, 5), (5, 70, 70), (7, 1000, 1),
+                                   (7, 999, 2), (9, 333, 8), (3, 40000, 70)])
+def test_assemble_masked_kernel(cuda, hash_width, B, M, k):
+    """K3's masked form against its plain version, bit for bit: odd M (the
+    main path's 21,227), M = k, per-row n_min of 0, k - 1, k, M, past M and
+    random, at widths 16, 32 and 64; one launch a call."""
+    rng = np.random.default_rng(B + M + k + hash_width)
+    h = rng.integers(0, 2**32, size=(2, B, M), dtype=np.uint64)
+    h[:, :, ::3] = 2**32 - 1 - h[:, :, ::3] % 1000
+    lo, hi = (torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(cuda) for x in h)
+    hi = hi if hash_width == 64 else None
+    st, en = (torch.from_numpy(x).to(cuda)
+              for x in rng.integers(0, 2**31, (2, B, M), dtype=np.int64).astype(np.int32))
+    n_min = np.resize([0, k - 1, k, M, M + 5], B)
+    n_min[5:] = rng.integers(0, M + 1, max(B - 5, 0))
+    n_min = torch.from_numpy(n_min.astype(np.int32)).to(cuda)
+    before = build.launches["assemble"]
+    got = assemble_masked_cuda(lo, k, hash_width, hi, n_min, st, en)
+    want = assemble_masked_plain(lo, k, hash_width, hi, n_min, st, en)
+    torch.cuda.synchronize()
+    assert build.launches["assemble"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize(
