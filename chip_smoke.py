@@ -10,7 +10,8 @@ a numpy seed, after building the CUDA kernels from
   - the main path: mode hpcsimd, l=31, k=5, d=0.01, u32 hashes; the fused
     route K1 -> K2 -> K3;
   - the general path: hpcsimd, nthash2, l=301, k=5, d=0.01; the route for
-    l = 1 or l > 255, K4 (HPC and minimizer compactions) -> K3;
+    l = 1 or l > 255, K4's HPC form -> the general scan (whole-row hash,
+    select and compaction) -> K3;
   - the u64 path: regular, hash_width=64, l=31, k=5, d=0.01; K1 -> K2 -> K3
     at width 64;
 
@@ -33,14 +34,19 @@ In order, and any failure raises (exit code != 0):
      each also in the masked form that writes the k-min-mer fields, with
      per-row counts 0, k-1, k, M and random), K4 masked compaction (the
      dense packed HPC compaction, m = L, and a 3-column minimizer
-     compaction at a 1% mask);
+     compaction at a 1% mask), K4's HPC form (read from the xcodes), and
+     the general scan (hpcsimd nthash2 l=301 on the HPC form's stream,
+     regular u64 l=400, regular u32 l=1 at d=0.3);
   4. reproduces the 15 u32 and 20 u64 golden hashes
      (tests/data/ecoli.genome.100k.fa, regular, l=10, k=5, d=0.0001) on
      the card;
   5. runs each path through ``kminmers_batch`` with the launch counters
      set to zero just before and read just after: each path must launch
-     its kernels (and the general path never K1), and all 12 KminmerBatch
-     fields must equal the plain pipeline's on the card;
+     its kernels (the general path K4's HPC form, the general scan and K3,
+     never K1 or K2), and all 12 KminmerBatch fields must equal the plain
+     pipeline's on the card; then forces the overflow rescue on a small
+     batch (a tiny capacity on the fused and the general route) and checks
+     that it retries and ends lossless, equal to its run on the CPU;
   6. times each path and each kernel with CUDA events, beside the plain
      versions; prints K1's time per instance beside its time with one
      block per read (before the tile-parallel design) and its bound, and
@@ -48,8 +54,10 @@ In order, and any failure raises (exit code != 0):
      (the larger of its bytes over the HBM rate and its integer operations
      over the peak rate); K2's and K3's device time under the profiler
      beside their times before their redesign; profiles 10 main-path
-     steps (device busy time a step, idle share, device kernels a step,
-     device time by kernel);
+     steps and 10 general-path steps (device busy time a step, idle share,
+     device kernels a step, device time by kernel); times K4's two cases,
+     its HPC form and the general scan beside their bounds and plain
+     versions, and the general step beside its time before this design;
   7. checks K1 with a carry bit for bit against its plain version: chunk 2
      of [4, 2 x 4 Mbp] reads from the carry the kernel gave on chunk 1, for
      u32 hpcsimd l=31, u64 regular l=31 and nthash2 hpc l=201, and times
@@ -70,9 +78,9 @@ In order, and any failure raises (exit code != 0):
      the bound; K2 on the chunk with and without its fill (the long-read
      driver's form), checked and timed.
 
-Then summary lines of K1 against its one-block-per-read design and of K2
-and K3 against their designs before the redesign.  The second-to-last
-line
+Then summary lines of K1 against its one-block-per-read design, of K2
+and K3 against their designs before the redesign, and of K4 and the
+general path against theirs.  The second-to-last line
 is a JSON object with one entry per kernel (its launches on the paths,
 error, time, plain time, bound and what binds it; no PyTorch call computes
 any of these functions, so ``library_ms`` is null); the last is
@@ -88,7 +96,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 7
 B, L = 32, 1 << 20
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
+KERNELS = {  # name -> (source, the TPU kernel or XLA code it replaces)
     "fused_scan": (
         "rust_seq2kminmers_torch/csrc/fused_scan.cu",
         "rust_seq2kminmers_tpu/ops/pallas/fused_scan.py:357",
@@ -105,6 +113,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "rust_seq2kminmers_torch/csrc/masked_compact.cu",
         "rust_seq2kminmers_tpu/ops/pallas/compact_kernel.py:125",
     ),
+    "general_scan": (
+        "rust_seq2kminmers_torch/csrc/general_scan.cu",
+        "rust_seq2kminmers_tpu/ops/pipeline.py:198-264",
+    ),
     "inrow_compact_ballot": (
         "rust_seq2kminmers_torch/csrc/inrow_compact.cu",
         "scripts/prof_mxu_compact.py:63",
@@ -114,6 +126,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
         "scripts/prof_mxu_compact.py:91",
     ),
 }
+# Launch counters per kernel: K4 counts its masked form and its HPC form.
+COUNTERS = {name: (name,) for name in KERNELS}
+COUNTERS["masked_compact"] = ("masked_compact", "hpc_compact")
 N_LONG = 300_000_000  # the reference's own long-read size (LONGREAD_r05.json)
 # The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): HBM bytes a
 # second, and its 67 T/s non-tensor float32 rate taken for the integer
@@ -144,6 +159,13 @@ K2_K3_BEFORE_MS = {
     "assemble xorshift main, events": 0.0335,
     "assemble murmur u16, events": 0.0438,
     "assemble identity u64, events": 0.0528,
+}
+# K4's and the general path's times in ms before this design (PERF.md:
+# K4's row, and the general step with the plain whole-row hash).
+K4_GENERAL_BEFORE_MS = {
+    "masked_compact (a) dense HPC": 0.2494,
+    "masked_compact (b) 3 columns, 1% mask": 0.2572,
+    "general path step": 20.3379,
 }
 
 
@@ -182,7 +204,7 @@ def main():
     import numpy as np
     import torch
 
-    from rust_seq2kminmers_torch import kminmers_list, kminmers_long, kminmers_long_batch
+    from rust_seq2kminmers_torch import api, kminmers_list, kminmers_long, kminmers_long_batch
     from rust_seq2kminmers_torch.api import kminmers_batch
     from rust_seq2kminmers_torch.constants import CODE_PAD, with_keep_bits
     from rust_seq2kminmers_torch.ops.assemble import assemble_masked_plain, assemble_plain
@@ -205,14 +227,18 @@ def main():
         inrow_compact_mma,
         inrow_compact_plain,
     )
-    from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
+    from rust_seq2kminmers_torch.ops.cuda.general_scan import (
+        general_minimizers,
+        general_minimizers_plain,
+    )
+    from rust_seq2kminmers_torch.ops.cuda.masked_compact import hpc_compact, masked_compact
     from rust_seq2kminmers_torch.ops.cuda.slot_compact import (
         slot_compact,
         slot_compact_counts,
         slot_compact_counts_plain,
         slot_compact_plain,
     )
-    from rust_seq2kminmers_torch.ops.hpc import hpc_keep_mask
+    from rust_seq2kminmers_torch.ops.hpc import hpc_compress_packed, hpc_keep_mask
     from rust_seq2kminmers_torch.ops.long_read import minimizer_stream_long
     from rust_seq2kminmers_torch.ops.pipeline import (
         PipelineSpec,
@@ -379,6 +405,35 @@ def main():
     got, want = masked_compact(*min_args), compact(*min_args)
     record("masked_compact", "(b) 3 columns, 1% mask", max_abs_err(
         [*got[0], got[1]], [*want[0], want[1]]))
+    n_sel_b = int(want[1].sum())
+    # K4's HPC form, read from the xcodes: the general path's first stage.
+    got, want = hpc_compact(codes, lengths), hpc_compress_packed(codes, lengths)
+    record("masked_compact", "HPC form from the xcodes, m = L", max_abs_err(got, want))
+    general_stream = got
+    # The general scan in three configurations, on the streams the general
+    # path gives it: the HPC form's packed column, or the xcodes.
+    general_cases = {
+        "hpcsimd nthash2 l=301": general_spec,
+        "regular u64 l=400": PipelineSpec(l=400, k=5, density=0.01, mode="regular",
+                                          hash_width=64),
+        "regular u32 l=1 d=0.3": PipelineSpec(l=1, k=5, density=0.3, mode="regular"),
+    }
+
+    def general_args(gs):
+        stream, eff = general_stream if gs.is_hpc else (codes, lengths)
+        return (stream, eff, lengths, gs.l, gs.bound, gs.strict_threshold, gs.mode,
+                gs.hash_width, gs.variant, gs.capacity_for(L))
+
+    for what, gs in general_cases.items():
+        got = general_minimizers(*general_args(gs))
+        want = general_minimizers_plain(*general_args(gs))
+        check((got[3] is None) == (want[3] is None), "hash_hi presence")
+        record("general_scan", what, max_abs_err(
+            [g for g in got if g is not None], [w for w in want if w is not None]))
+        check(int(got[5].sum()) > 0, f"general scan {what} selected nothing")
+        log(f"  general scan {what}: {int(got[5].sum())} minimizers selected, "
+            f"m = {gs.capacity_for(L)}")
+    del got, want
     torch.cuda.synchronize()
 
     # 4. the goldens, on the card
@@ -394,21 +449,24 @@ def main():
             "equal the reference's")
 
     # 5. each path through the user entry point, counters at 0 just before
+    # (spec, counters launched once each, counters never launched)
+    general_only = ("hpc_compact", "general_scan", "masked_compact")
     path_kernels = {
-        "main": (spec, ("fused_scan", "slot_compact", "assemble"), ("masked_compact",)),
-        "general": (general_spec, ("masked_compact", "assemble"),
-                    ("fused_scan", "slot_compact")),
-        "u64": (u64_spec, ("fused_scan", "slot_compact", "assemble"), ("masked_compact",)),
+        "main": (spec, ("fused_scan", "slot_compact", "assemble"), general_only),
+        "general": (general_spec, ("hpc_compact", "general_scan", "assemble"),
+                    ("fused_scan", "slot_compact", "masked_compact")),
+        "u64": (u64_spec, ("fused_scan", "slot_compact", "assemble"), general_only),
     }
-    launches = {name: 0 for name in KERNELS}
+    counters = sorted({c for cs in COUNTERS.values() for c in cs})
+    launches = {c: 0 for c in counters}
     for path, (ps, used, unused) in path_kernels.items():
         build.launches.clear()
         out = kminmers_batch(codes, lengths, ps)
         torch.cuda.synchronize()
-        ran = {name: build.launches[name] for name in KERNELS}
+        ran = {c: build.launches[c] for c in counters}
         log(f"{path} path launches: {ran}")
         for name in used:
-            check(ran[name] > 0, f"the {path} path never launched {name}")
+            check(ran[name] == 1, f"the {path} path launched {name} {ran[name]} times, not once")
             launches[name] += ran[name]
         for name in unused:
             check(ran[name] == 0, f"the {path} path launched {name}")
@@ -427,6 +485,39 @@ def main():
         log(f"{path} path [{B}, {L}] {ps.mode} w{ps.hash_width} {ps.variant} "
             f"l={ps.l}: all 12 KminmerBatch fields equal the plain pipeline on "
             f"the card; {n_km} k-min-mers, {int(out.n_minimizers.sum())} minimizers")
+
+    # The overflow rescue on the card: capacities far below the count force
+    # kminmers_batch to retry, on the fused and on the general route; it must
+    # end lossless and equal its run on the CPU.
+    small = pool[0][:4, : 1 << 16].contiguous()
+    small_len = torch.full((4,), 1 << 16, dtype=torch.int32, device=dev)
+    real_rescue = api.rescue_spec
+    for route, rs in (
+        ("fused", PipelineSpec(l=11, k=3, density=0.05, mode="hpcsimd", max_minimizers=64,
+                               tile_cap=8)),
+        ("general", PipelineSpec(l=301, k=3, density=0.05, mode="hpc", max_minimizers=64)),
+    ):
+        retries = []
+
+        def counted_rescue(s_, needed=0, seen=retries):
+            seen.append(needed)
+            return real_rescue(s_, needed)
+
+        api.rescue_spec = counted_rescue
+        try:
+            out = kminmers_batch(small, small_len, rs)
+        finally:
+            api.rescue_spec = real_rescue
+        torch.cuda.synchronize()
+        want = kminmers_batch(small.cpu(), small_len.cpu(), rs)
+        check(len(retries) >= 1, f"the {route} rescue check never retried")
+        check(torch.equal(out.n_minimizers, out.n_minimizers_raw),
+              f"the {route} rescue lost minimizers")
+        for name, gv, wv in zip(out._fields, out, want):
+            check(torch.equal(gv.cpu(), wv), f"{route} rescue field {name} differs from the CPU")
+        log(f"rescue on the {route} route [4, 2^16] {rs.mode} l={rs.l} M=64: "
+            f"{len(retries)} retry, lossless ({int(out.n_minimizers.sum())} minimizers), "
+            "all 12 fields equal the CPU run")
 
     # 6. timing (CUDA events, after warm-up)
     def time_ms(fn, reps, warmup=2):
@@ -456,16 +547,22 @@ def main():
         f"{gbps(step_ms):.4f} GB/s (plain pipeline {plain_step_ms:.4f} ms = "
         f"{gbps(plain_step_ms):.4f} GB/s); peak device memory of a step "
         f"{peak_gib:.3f} GiB above what was live")
+    general_step_ms = None
     for path in ("general", "u64"):
         ps = path_kernels[path][0]
         t = time_ms(lambda i: kminmer_pipeline(pool[i % 2], lengths, ps), 10)
         tp = time_ms(lambda i: kminmer_pipeline_plain(pool[i % 2], lengths, ps), 3, 1)
         log(f"{path} path step [{B}, {L}] on {card}: {t:.4f} ms = {gbps(t):.4f} "
             f"GB/s (plain pipeline {tp:.4f} ms = {gbps(tp):.4f} GB/s)")
+        if path == "general":
+            general_step_ms = t
 
     k1_runs = [
         fused_minimizer_scan(c, lengths, limit, *scan_args, TILE, cap) for c in pool
     ]
+    # The general scan's arguments on the general path, for each batch.
+    general_main = [(*hpc_compact(c, lengths), *general_args(general_spec)[2:])
+                    for c in pool]
     # K2 and K3 as the main path calls them: K2 reads K1's counts in place,
     # K3 writes the masked k-min-mer fields.
     def k2_main(i):
@@ -480,7 +577,9 @@ def main():
                 pool[i % 2], lengths, limit, *scan_args, TILE, cap), 20),
         "slot_compact": time_ms(k2_main, 50),
         "assemble": time_ms(k3_main, 50),
-        "masked_compact": time_ms(lambda i: masked_compact(*hpc_args), 20),
+        # K4 as the general path calls it: its HPC form.
+        "masked_compact": time_ms(lambda i: hpc_compact(pool[i % 2], lengths), 20),
+        "general_scan": time_ms(lambda i: general_minimizers(*general_main[i % 2]), 20),
     }
     plain_ms = {
         "fused_scan": time_ms(
@@ -492,7 +591,9 @@ def main():
         "assemble": time_ms(
             lambda i: assemble_masked_plain(min_hash, spec.k, 32, None, n_main, *pos_main),
             10),
-        "masked_compact": time_ms(lambda i: compact(*hpc_args), 5, 1),
+        "masked_compact": time_ms(lambda i: hpc_compress_packed(pool[i % 2], lengths), 3, 1),
+        "general_scan": time_ms(
+            lambda i: general_minimizers_plain(*general_main[i % 2]), 3, 1),
     }
     for name in ms:
         log(f"{name} on {card}: kernel {ms[name]:.4f} ms (CUDA events), plain "
@@ -538,8 +639,45 @@ def main():
     n_valid = int((n_main - (spec.k - 1)).clamp(min=0).sum())
     bounds["assemble"] = bound(n_words * 4 + n_valid * 8 + B * nk * 17 + B * 8,
                                12 * n_words + 16 * n_valid)
+    # K4's least work: the mask (or xcodes) read once, each selected
+    # element of each column read once, every output slot and the count
+    # written once; a test and a rank (2 operations) an element.
     n_hpc = int(hpc_args[0].sum())
-    bounds["masked_compact"] = bound(B * L + n_hpc * 4 + B * L * 4 + B * 4, 2 * B * L)
+    k4_bounds = {
+        "(a) dense HPC": bound(B * L + n_hpc * 4 + B * L * 4 + B * 4, 2 * B * L),
+        "(b) 3 columns, 1% mask": bound(
+            B * nwin + n_sel_b * 12 + B * min_args[2] * 12 + B * 4, 2 * B * nwin),
+        # the xcodes and lengths read, the packed column and count written
+        "HPC form": bound(B * L + B * 4 + B * L * 4 + B * 4, 3 * B * L),
+    }
+    bounds["masked_compact"] = k4_bounds["HPC form"]
+    # (b)'s bound counts 4 bytes a selected element; the card reads a whole
+    # 32-byte sector for each, and at a 1% mask few sectors hold two.
+    sel_flat = torch.nonzero(min_args[0].reshape(-1)).squeeze(1)
+    sectors = int(torch.unique(sel_flat // 8).numel())
+    log(f"K4 (b): {sectors} 32-byte sectors of each column hold a selected element; "
+        "reading them, the mask and the output once takes "
+        f"{(B * nwin + 3 * sectors * 32 + B * min_args[2] * 12 + B * 4) / HBM_BYTES_PER_S * 1e3:.4f}"
+        " ms at the HBM rate")
+
+    def general_bound(gs):
+        """The general scan's least work on this run's inputs: of each row
+        with lengths > l, the stream's first eff_len elements read once (4
+        bytes a packed element, 1 a code; no window reads past them),
+        lengths and eff_len read, every output slot (12 bytes, 16 at width
+        64) and n_min, n_raw written; per window its two terms, two prefix
+        XORs, the window's two XORs and rotations, the min and the compare
+        (10 operations)."""
+        stream, eff, lens, l_ = general_args(gs)[:4]
+        live = lens > l_
+        need = int(torch.where(live, eff.clamp(max=L), 0).sum())
+        n_win = int(torch.where(
+            live, (eff - l_ + 1 - int(gs.mode == "hpc")).clamp(0, L - l_ + 1), 0).sum())
+        m_ = gs.capacity_for(L)
+        return bound(need * stream.element_size() + B * 8
+                     + B * m_ * (16 if gs.hash_width == 64 else 12) + B * 8, 10 * n_win)
+
+    bounds["general_scan"] = general_bound(general_spec)
     for name in bounds:
         log(f"bound of {name} on these inputs: {bounds[name][0]:.4f} ms by {bounds[name][1]}")
 
@@ -551,9 +689,16 @@ def main():
     k2_keys = ("slot_compact_offsets", "slot_compact_copy")
     k3_keys = ("assemble_kernel",)
 
+    def kernel_name(e):
+        """A device event's kernel, without its namespaces, template and
+        arguments."""
+        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
     def device_ms(fn, keys, reps=20):
-        """(device ms, kernels) a call of fn, over the kernels whose names
-        hold one of ``keys``, under the profiler after a warm-up call."""
+        """(device ms, kernels, device ms by kernel) a call of fn, over the
+        kernels whose names hold one of ``keys``, under the profiler after
+        a warm-up call."""
         fn(0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
@@ -563,7 +708,12 @@ def main():
         evs = [e for e in p.events() if e.device_type == DeviceType.CUDA
                and any(k in e.name for k in keys)]
         check(evs, f"the profiler recorded no kernel named {keys}")
-        return sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / reps, len(evs) / reps
+        by_kernel = {}
+        for e in evs:
+            key = kernel_name(e)
+            by_kernel[key] = by_kernel.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+        return sum(by_kernel.values()), len(evs) / reps, by_kernel
 
     dev_ms = {
         "slot_compact main": (k2_main, k2_keys),
@@ -594,31 +744,63 @@ def main():
     ms["slot_compact"] = dev_ms["slot_compact main"][0]
     ms["assemble"] = dev_ms["assemble masked xorshift main"][0]
 
-    # The main path's device time: 10 steps under the profiler; the busy
-    # time is the union of the kernels' and copies' spans.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tr:
-        t0 = time.perf_counter()
-        for i in range(10):
-            kminmer_pipeline(pool[i % 2], lengths, spec)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_events = [e for e in tr.events() if e.device_type == DeviceType.CUDA]
-    check(dev_events, "the profiler recorded no device event")
-    busy, _ = device_busy(dev_events)
-    per_kernel = {}
-    for e in dev_events:
-        key = next((k for k in ("tile_summary", "tile_carries", "scan_kernel", *k2_keys,
-                                *k3_keys) if k in e.name), "other")
-        per_kernel[key] = per_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e4
-    n_kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev_events)
-    log(f"main path under the profiler on {card}: device busy {busy * 100:.4f} ms a step "
-        f"of {wall * 100:.4f} ms wall (idle share {1 - busy / wall:.4f}); "
-        f"{n_kernels / 10:.1f} device kernels a step ({len(dev_events) / 10:.1f} device "
-        "events); device ms a step "
-        + ", ".join(f"{k} {v:.4f}" for k, v in per_kernel.items()))
+    def profile_steps(ps):
+        """10 steps of a path under the profiler: the busy time is the union
+        of the kernels' and copies' spans."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tr:
+            t0 = time.perf_counter()
+            for i in range(10):
+                kminmer_pipeline(pool[i % 2], lengths, ps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_events = [e for e in tr.events() if e.device_type == DeviceType.CUDA]
+        check(dev_events, "the profiler recorded no device event")
+        busy, _ = device_busy(dev_events)
+        per_kernel = {}
+        for e in dev_events:
+            key = kernel_name(e)
+            per_kernel[key] = per_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e4
+        n_kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev_events)
+        return busy * 100, wall * 100, n_kernels / 10, len(dev_events) / 10, per_kernel
+
+    for path in ("main", "general"):
+        busy, wall, n_k, n_ev, per_kernel = profile_steps(path_kernels[path][0])
+        log(f"{path} path under the profiler on {card}: device busy {busy:.4f} ms a step "
+            f"of {wall:.4f} ms wall (idle share {1 - busy / wall:.4f}); {n_k:.1f} device "
+            f"kernels a step ({n_ev:.1f} device events); device ms a step "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        sorted(per_kernel.items(), key=lambda kv: -kv[1])))
+
+    # K4's two masked cases, its HPC form and the general scan: CUDA events
+    # and device time under the profiler, beside the bound and the plain
+    # version.  (what, kernel, plain, bound)
+    k4_general = [
+        ("masked_compact (a) dense HPC", lambda i: masked_compact(*hpc_args),
+         lambda i: compact(*hpc_args), k4_bounds["(a) dense HPC"]),
+        ("masked_compact (b) 3 columns, 1% mask", lambda i: masked_compact(*min_args),
+         lambda i: compact(*min_args), k4_bounds["(b) 3 columns, 1% mask"]),
+        ("masked_compact HPC form", lambda i: hpc_compact(pool[i % 2], lengths),
+         lambda i: hpc_compress_packed(pool[i % 2], lengths), k4_bounds["HPC form"]),
+    ]
+    for what, gs in general_cases.items():
+        k4_general.append((f"general_scan {what}",
+                           lambda i, a=general_args(gs): general_minimizers(*a),
+                           lambda i, a=general_args(gs): general_minimizers_plain(*a),
+                           general_bound(gs)))
+    k4_seen = {}
+    for what, kern, plain, bnd in k4_general:
+        t_ev = time_ms(kern, 20)
+        t_dev, n_k, by_kernel = device_ms(kern, ("kernel",))
+        t_plain = time_ms(plain, 3, 1)
+        k4_seen[what] = t_dev
+        log(f"{what} on {card}: device {t_dev:.4f} ms a call ({n_k:.0f} kernels; "
+            f"profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items())
+            + f"), {t_ev:.4f} ms (CUDA events); bound {bnd[0]:.4f} ms by {bnd[1]} "
+            f"({bnd[0] / t_dev:.3f} of the bound reached); plain {t_plain:.4f} ms")
+    ms["masked_compact"] = k4_seen["masked_compact HPC form"]
+    ms["general_scan"] = k4_seen["general_scan hpcsimd nthash2 l=301"]
+    k4_seen["general path step"] = general_step_ms
     extra = {
-        "masked_compact (b) 3 columns, 1% mask": (
-            lambda i: masked_compact(*min_args), lambda i: compact(*min_args)),
         "assemble xorshift u32, unmasked": (
             lambda i: assemble_kminmers_cuda(min_hash, spec.k),
             lambda i: assemble_plain(min_hash, spec.k)),
@@ -832,8 +1014,8 @@ def main():
         cols = [c if fill else torch.where(valid_l, c, 0) for c in got_c[0]]
         record("slot_compact", f"long read: chunk 2 of [1, 2^25], counts form, {what}",
                max_abs_err([*cols, *got_c[1:]], [*want_c[0], *want_c[1:]]))
-        t_dev, _ = device_ms(
-            lambda i, f=fill: slot_compact_counts(*got[:3], got[3], lm_cap, f), k2_keys)
+        t_dev = device_ms(
+            lambda i, f=fill: slot_compact_counts(*got[:3], got[3], lm_cap, f), k2_keys)[0]
         t_ev = time_ms(lambda i, f=fill: slot_compact_counts(*got[:3], got[3], lm_cap, f), 20)
         bnd = k2_bound(kept_l, lm_cap, fill)
         log(f"K2 on the long-read chunk [1, 2^25] ({kept_l.shape[1]} tiles, m = {lm_cap}) "
@@ -858,13 +1040,16 @@ def main():
     log("K2 and K3 against their designs before the redesign, on " + card + ": "
         + "; ".join(f"{what} {t:.4f} ms (before: {K2_K3_BEFORE_MS[key]})"
                     for what, t, key in k23_seen))
+    log("K4 and the general path against their designs before, on " + card + ": "
+        + "; ".join(f"{what} {k4_seen[what]:.4f} ms (before: {t})"
+                    for what, t in K4_GENERAL_BEFORE_MS.items()))
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": src,
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": sum(launches[c] for c in COUNTERS[name]),
             "max_abs_err": errs[name],
             "ms": ms[name],
             "plain_ms": plain_ms[name],

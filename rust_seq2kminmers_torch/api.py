@@ -17,7 +17,7 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
-from .constants import XCODE_PAD, encode_xcodes, family_of_mode
+from .constants import MODES, XCODE_PAD, encode_xcodes, family_of_mode
 from .ops.pipeline import PipelineSpec, kminmer_pipeline
 from .ops.u64 import to_py_u64
 
@@ -52,8 +52,12 @@ class KminmerRecord:
 
 def _mode_name(mode) -> str:
     """A mode string, or an enum whose value is one (the reference's
-    HashMode)."""
-    return str(getattr(mode, "value", mode)).lower()
+    HashMode); any other mode raises ValueError, as HashMode(...) does in
+    the reference."""
+    name = str(getattr(mode, "value", mode)).lower()
+    if name not in MODES:
+        raise ValueError(f"{mode!r} is not a valid mode: one of {MODES}")
+    return name
 
 
 def _bucket_length(n: int) -> int:

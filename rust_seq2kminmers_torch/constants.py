@@ -90,6 +90,9 @@ XCODE_KEEP = 8  # bit 3: this base differs from the previous raw byte
 XCODE_PAD = XCODE_KEEP | CODE_PAD
 
 
+MODES = ("regular", "hpc", "simd", "hpcsimd")
+
+
 def family_of_mode(mode: str) -> str:
     """Hash-table family of a mode: scalar (regular/hpc) or simd."""
     return "simd" if mode in ("simd", "hpcsimd") else "scalar"

@@ -88,45 +88,16 @@ constexpr int RANKS_SMEM = 12000;  // pass 2 searches ranks in shared memory
 constexpr int NW = NT / 32;  // warps per block
 constexpr int NT1 = 256, CH = 4;  // pass 1: threads, 16-byte chunks a thread
 constexpr int TPB = 64;  // pass 2: tiles' pending prefixes a block
-constexpr unsigned FULL = 0xffffffffu;
 
-// A hash width: its value type, rotate (the amount taken mod the width)
-// and the amount that rotates by -r.
-struct H32 {
-  using T = uint32_t;
-  __device__ static T rol(T x, uint32_t r) { return s2k::rol32(x, r); }
-  __device__ static uint32_t neg(uint32_t r) { return 0u - r; }
-};
-
-struct H16 {  // values below 2^16 in 32-bit lanes
-  using T = uint32_t;
-  __device__ static T rol(T x, uint32_t r) {
-    r &= 15u;
-    return ((x << r) | (x >> (16u - r))) & 0xFFFFu;
-  }
-  __device__ static uint32_t neg(uint32_t r) { return 0u - r; }
-};
-
-struct H31 {  // NtHash2-hybrid: values below 2^31, rotates mod 31
-  using T = uint32_t;
-  __device__ static T rol(T x, uint32_t r) {
-    r %= 31u;  // x >> 31 is 0 at r = 0: x < 2^31
-    return ((x << r) | (x >> (31u - r))) & 0x7FFFFFFFu;
-  }
-  __device__ static uint32_t neg(uint32_t r) { return (31u - r % 31u) % 31u; }
-};
-
-struct H64 {
-  using T = uint64_t;
-  __device__ static T rol(T x, uint32_t r) { return s2k::rol64(x, r); }
-  __device__ static uint32_t neg(uint32_t r) { return 0u - r; }
-};
-
-// Byte x of a 16-byte chunk.
-__device__ __forceinline__ uint32_t byte_of(const uint4& v, int x) {
-  const uint32_t w = x < 8 ? (x < 4 ? v.x : v.y) : (x < 12 ? v.z : v.w);
-  return (w >> ((x & 3) * 8)) & 0xFFu;
-}
+using s2k::FULL;
+using s2k::H16;
+using s2k::H31;
+using s2k::H32;
+using s2k::H64;
+using s2k::byte_of;
+using s2k::misalign;
+using s2k::warp_xor_scan;
+using s2k::xor_below;
 
 // Whether xcode x at position j < t1 is a stream element: every position
 // in the regular modes, the HPC keep bit before the read's end in the hpc
@@ -134,36 +105,6 @@ __device__ __forceinline__ uint32_t byte_of(const uint4& v, int x) {
 __device__ __forceinline__ bool kept(uint32_t x, int j, int t1, int length,
                                      int do_hpc) {
   return j < t1 && (!do_hpc || ((x & 8u) != 0 && j < length));
-}
-
-// The 16-byte chunks that cover row[t0, t1) start at the aligned address at
-// or below row + t0.  Each shares its aligned 16 bytes with a byte of the
-// row, so loading it never leaves the pages the row lies in.
-__device__ __forceinline__ int misalign(const uint8_t* p) {
-  return (int)((uintptr_t)p & 15u);
-}
-
-// Inclusive XOR scan over the warp's lanes.
-template <typename T>
-__device__ __forceinline__ T warp_xor_scan(T v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const T u = __shfl_up_sync(FULL, v, o);
-    if (lane >= o) v ^= u;
-  }
-  return v;
-}
-
-// The XOR of w[0 .. warp), in every lane.
-template <typename T>
-__device__ __forceinline__ T xor_below(const T* w, int lane, int warp) {
-  const T v = lane < warp ? w[lane] : 0;
-  if constexpr (sizeof(T) == 8) {
-    return (uint64_t)__reduce_xor_sync(FULL, (unsigned)(v >> 32)) << 32 |
-           __reduce_xor_sync(FULL, (unsigned)v);
-  } else {
-    return __reduce_xor_sync(FULL, v);
-  }
 }
 
 // ---- pass 1: per tile, the kept count and the last l kept elements -------

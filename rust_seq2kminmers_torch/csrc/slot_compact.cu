@@ -41,18 +41,14 @@ __global__ void __launch_bounds__(NT_OFF) slot_compact_offsets_kernel(
   __shared__ int s_tot[32];
   const int b = blockIdx.x, tid = threadIdx.x;
   int32_t* off = offsets + (size_t)b * (nt + 1);
-  int running = 0, raw_sum = 0;
-  for (int t0 = 0; t0 < nt; t0 += NT_OFF) {
-    const int t = t0 + tid;
-    const size_t at = ((size_t)b * nt + t) * stride;
-    const int c = t < nt ? min(max(kept[at], 0), cap) : 0;
-    if (raw != nullptr && t < nt) raw_sum += raw[at];
-    int total;
-    const int pre = s2k::block_exclusive_sum<NT_OFF>(c, s_tot, &total);
-    if (t < nt) off[t] = running + pre;
-    running += total;
-    __syncthreads();  // s_tot is read above before the next round writes it
-  }
+  int raw_sum = 0;
+  const int running = s2k::row_exclusive_scan<NT_OFF>(
+      [&](int t) {
+        const size_t at = ((size_t)b * nt + t) * stride;
+        if (raw != nullptr) raw_sum += raw[at];
+        return min(max(kept[at], 0), cap);
+      },
+      off, nt, s_tot);
   if (raw != nullptr) {
     int total;
     s2k::block_exclusive_sum<NT_OFF>(raw_sum, s_tot, &total);

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import CODE_PAD, XCODE_KEEP
-from .cuda.masked_compact import masked_compact
+from .compact import compact
 
 
 def with_keep_bits_device(codes: torch.Tensor) -> torch.Tensor:
@@ -30,24 +30,18 @@ def hpc_keep_mask(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return ((codes & XCODE_KEEP) != 0) & (j[None, :] < lengths[:, None])
 
 
-def hpc_compress_packed(codes, lengths, compact_fn=masked_compact):
+def hpc_compress_packed(codes, lengths):
     """HPC compaction as ONE int32 column (pos << 3) | code, m = L.
     -> (packed int32[B, L], filled with (L << 3) | CODE_PAD past the
-    count, hpc_len int32[B]).  ``compact_fn`` is K4 (``masked_compact``)
-    or its plain version."""
+    count, hpc_len int32[B]).  The plain version of K4's HPC form,
+    ``ops/cuda/masked_compact.py:hpc_compact``."""
     B, L = codes.shape
     if L >= 1 << 28:
         raise ValueError("padded length must be < 2^28 for packed streams")
     j = torch.arange(L, dtype=torch.int32, device=codes.device)
     packed = (j[None, :] << 3) | (codes & 7).to(torch.int32)
-    (pk,), count = compact_fn(
+    (pk,), count = compact(
         hpc_keep_mask(codes, lengths), [packed], L, [(L << 3) | CODE_PAD]
     )
     return pk, count
 
-
-def hpc_compress(codes, lengths, compact_fn=masked_compact):
-    """-> (hpc codes uint8[B, L] padded with CODE_PAD, original
-    start-of-run positions int32[B, L] padded with L, hpc_len int32[B])."""
-    pk, count = hpc_compress_packed(codes, lengths, compact_fn)
-    return (pk & 7).to(codes.dtype), pk >> 3, count

@@ -14,12 +14,12 @@ when 2 <= l <= 255, the general path otherwise (l = 1, or l > 255).
                                                  (ops/cuda/assemble_kernel.py)
 
     general path:
-      -> (hpc modes) K4 compaction of the kept bases, packed with their
-         positions                               (ops/hpc.py)
-      -> sliding canonical NtHash over the whole rows, density select
-                                                 (ops/nthash.py)
-      -> K4 compaction of (start, end, hash[, hash_hi]) into [B, m]
-                                                 (ops/cuda/masked_compact.py)
+      -> (hpc modes) K4's HPC form: the kept bases left-packed with their
+         positions, (pos << 3) | code            (ops/cuda/masked_compact.py)
+      -> the general scan: canonical NtHash of every window of the whole
+         rows, density select, window gate, start/end, and the ordered
+         compaction into [B, m] with n_min and n_raw
+                                                 (ops/cuda/general_scan.py)
       -> K3, as on the fused path
 
 The hash is NtHash1 at width 16, 32 or 64, or the NtHash2-hybrid 31-bit
@@ -48,13 +48,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..constants import (
+    MODES,
     hash_bound,
     hash_bound_nthash2_31,
     hash_bound_simd_u32,
     hash_bound_u32,
 )
 from .assemble import assemble_masked_plain
-from .compact import compact
 from .cuda.assemble_kernel import assemble_masked_cuda
 from .cuda.fused_scan import (
     MAX_L,
@@ -63,13 +63,10 @@ from .cuda.fused_scan import (
     fused_minimizer_scan,
     fused_scan_plain,
 )
-from .cuda.masked_compact import masked_compact
+from .cuda.general_scan import general_minimizers, general_minimizers_plain
+from .cuda.masked_compact import hpc_compact
 from .cuda.slot_compact import slot_compact_counts, slot_compact_counts_plain
-from .hpc import hpc_compress
-from .nthash import below_bound, canonical_nthash
-from .u64 import i32_bits
-
-MODES = ("regular", "hpc", "simd", "hpcsimd")
+from .hpc import hpc_compress_packed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,12 +177,15 @@ class KminmerBatch(NamedTuple):
 class _Stages(NamedTuple):
     scan: object  # K1
     stitch: object  # K2
-    compact: object  # K4
+    hpc: object  # K4's HPC form
+    general: object  # the general scan
     assemble: object  # K3
 
 
-_KERNELS = _Stages(fused_minimizer_scan, slot_compact_counts, masked_compact, assemble_masked_cuda)
-_PLAIN = _Stages(fused_scan_plain, slot_compact_counts_plain, compact, assemble_masked_plain)
+_KERNELS = _Stages(fused_minimizer_scan, slot_compact_counts, hpc_compact,
+                   general_minimizers, assemble_masked_cuda)
+_PLAIN = _Stages(fused_scan_plain, slot_compact_counts_plain, hpc_compress_packed,
+                 general_minimizers_plain, assemble_masked_plain)
 
 
 def kminmer_pipeline(
@@ -242,46 +242,16 @@ def _fused_minimizers(codes, lengths, spec, stages, m_cap):
 
 
 def _general_minimizers(codes, lengths, spec, stages, m_cap):
-    """Hash the whole rows, select, and K4-compact: the minimizer stream
-    [B, m_cap], zero past the count."""
-    B, L = codes.shape
-    l = spec.l
+    """(hpc modes) K4's HPC form, then the general scan: the minimizer
+    stream [B, m_cap], zero past the count."""
     if spec.is_hpc:
-        hash_input, pos, eff_len = hpc_compress(codes, lengths, stages.compact)
+        stream, eff_len = stages.hpc(codes, lengths)
     else:
-        hash_input, eff_len = codes, lengths
-    h = canonical_nthash(hash_input, l, spec.hash_width, spec.variant)
-    nwin = L - l + 1
-    i = torch.arange(nwin, dtype=torch.int32, device=codes.device)[None, :]
-
-    # Whole-read gate: no window unless the read is longer than l.  The
-    # hpc mode never emits the last HPC window.
-    if spec.mode == "hpc":
-        valid = i < (eff_len - l)[:, None]
-    else:
-        valid = i <= (eff_len - l)[:, None]
-    sel = (lengths > l)[:, None] & valid & below_bound(
-        h, spec.bound, spec.strict_threshold, spec.hash_width
+        stream, eff_len = codes, lengths
+    return stages.general(
+        stream, eff_len, lengths, spec.l, spec.bound, spec.strict_threshold,
+        spec.mode, spec.hash_width, spec.variant, m_cap,
     )
-
-    if spec.is_hpc:
-        start = pos[:, :nwin]
-        if spec.mode == "hpc":  # first original index after the window, - 1
-            pos_ext = torch.cat([pos, pos.new_full((B, 1), L)], dim=1)
-            end = pos_ext[:, l : l + nwin] - 1
-        else:
-            end = pos[:, l - 1 : l - 1 + nwin]
-    else:
-        start = i.expand(B, nwin)
-        end = start + (l - 1)
-    cols = [start, end, i32_bits(h)]
-    if spec.hash_width == 64:
-        cols.append(i32_bits(h >> 32))
-    cols, n_raw = stages.compact(
-        sel, [c.contiguous() for c in cols], m_cap, [0] * len(cols)
-    )
-    min_hash_hi = cols[3] if spec.hash_width == 64 else None
-    return cols[0], cols[1], cols[2], min_hash_hi, torch.clamp(n_raw, max=m_cap), n_raw
 
 
 def _assemble(spec, stages, min_start, min_end, min_hash, min_hash_hi, n_min, n_raw):

@@ -1,8 +1,9 @@
-"""Profiles the main path's step on one NVIDIA GPU: ``kminmer_pipeline`` at
-[32, 1 Mbp] random ACGT, hpcsimd, l=31, k=5, d=0.01, u32 (the shape and
-data of ``chip_smoke.py``).
+"""Profiles a path's step on one NVIDIA GPU: ``kminmer_pipeline`` at
+[32, 1 Mbp] random ACGT (the shape and data of ``chip_smoke.py``), on the
+main path (hpcsimd, l=31, k=5, d=0.01, u32) or with ``--path general`` on
+the general path (hpcsimd, nthash2, l=301, k=5, d=0.01).
 
-    python rust_seq2kminmers_torch/scripts/prof_main_step.py [--root DIR]
+    python rust_seq2kminmers_torch/scripts/prof_main_step.py [--root DIR] [--path general]
 
 ``--root`` imports ``rust_seq2kminmers_torch`` from another checkout (for
 example an earlier commit unpacked by ``git archive``), so that two
@@ -15,9 +16,10 @@ both have.  Prints the card's name and power limit, then:
      of the device spans), idle share, device kernels a step, and device
      time a step by kernel;
   3. the stages apart, each 10 times under the profiler: the minimizer
-     stream (``_fused_minimizers``: K1, K2 and their glue) and the
-     k-min-mer fields (``_assemble``: K3 and, where there is one, its
-     masking), with device kernels and device time a call;
+     stream (``_fused_minimizers``: K1, K2 and their glue; on the general
+     path ``_general_minimizers``) and the k-min-mer fields (``_assemble``:
+     K3 and, where there is one, its masking), with device kernels and
+     device time a call;
   4. the host's time to enqueue a step and each stage (host clock over 20
      calls, without the profiler and before the closing synchronize);
 
@@ -44,7 +46,9 @@ def _kernels(events):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    root = Path(ap.parse_args().root).resolve()
+    ap.add_argument("--path", choices=("main", "general"), default="main")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -62,11 +66,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"{card}; package from {root}", flush=True)
+    print(f"{card}; package from {root}; {args.path} path", flush=True)
     dev = torch.device("cuda", 0)
     B, L = 32, 1 << 20
-    spec = pipeline.PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd",
-                                 max_minimizers=int(L * 0.02) + 256)
+    if args.path == "main":
+        spec = pipeline.PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd",
+                                     max_minimizers=int(L * 0.02) + 256)
+        minimizers = pipeline._fused_minimizers
+    else:
+        spec = pipeline.PipelineSpec(l=301, k=5, density=0.01, mode="hpcsimd",
+                                     variant="nthash2")
+        minimizers = pipeline._general_minimizers
     rng = np.random.default_rng(7)
     pool = [torch.from_numpy(with_keep_bits(rng.integers(0, 4, (B, L), dtype=np.uint8)))
             .to(dev) for _ in range(2)]
@@ -135,9 +145,9 @@ def main() -> int:
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"  {ms:8.4f} ms a step  x{n / 10:<4.1f} {name[:100]}")
 
-    stream = pipeline._fused_minimizers(pool[0], lengths, spec, pipeline._KERNELS, m_cap)
+    stream = minimizers(pool[0], lengths, spec, pipeline._KERNELS, m_cap)
     stages = {
-        "minimizer stream (K1, K2, glue)": lambda i: pipeline._fused_minimizers(
+        "minimizer stream (all before K3)": lambda i: minimizers(
             pool[i % 2], lengths, spec, pipeline._KERNELS, m_cap),
         "k-min-mer fields (K3 and its masking)": lambda i: pipeline._assemble(
             spec, pipeline._KERNELS, *stream),

@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from rust_seq2kminmers_torch import kminmers_list, kminmers_long, kminmers_long_batch
-from rust_seq2kminmers_torch.constants import XCODE_PAD, with_keep_bits
+from rust_seq2kminmers_torch import api, kminmers_list, kminmers_long, kminmers_long_batch
+from rust_seq2kminmers_torch.api import kminmers_batch
+from rust_seq2kminmers_torch.constants import XCODE_PAD, encode_xcodes, with_keep_bits
 from rust_seq2kminmers_torch.ops.assemble import (
     assemble_kminmers,
     assemble_masked_plain,
@@ -41,8 +42,13 @@ from rust_seq2kminmers_torch.ops.cuda.inrow_compact import (
     inrow_compact_mma,
     inrow_compact_plain,
 )
-from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
-from rust_seq2kminmers_torch.ops.hpc import hpc_compress
+from rust_seq2kminmers_torch.ops import long_read
+from rust_seq2kminmers_torch.ops.cuda.general_scan import (
+    general_minimizers,
+    general_minimizers_plain,
+)
+from rust_seq2kminmers_torch.ops.cuda.masked_compact import hpc_compact, masked_compact
+from rust_seq2kminmers_torch.ops.hpc import hpc_compress_packed
 from rust_seq2kminmers_torch.ops.cuda.slot_compact import (
     slot_compact,
     slot_compact_counts,
@@ -180,7 +186,8 @@ def test_pipeline_kernels_match_plain(cuda, mode, hash_width, variant):
     torch.cuda.synchronize()
     for name in ("fused_scan", "slot_compact", "assemble"):
         assert build.launches[name] == before.get(name, 0) + 1, name
-    assert build.launches["masked_compact"] == before.get("masked_compact", 0)
+    for name in ("masked_compact", "hpc_compact", "general_scan"):
+        assert build.launches[name] == before.get(name, 0), name
     for name, g, w in zip(got._fields, got, want):
         assert torch.equal(g, w), name
 
@@ -332,12 +339,15 @@ def test_assemble_masked_kernel(cuda, hash_width, B, M, k):
     "B,N,m,density",
     [(3, 100000, 100000, 0.0), (3, 100000, 100000, 1.0), (3, 100000, 1, 0.5),
      (2, 1, 1, 1.0), (2, 1, 5, 0.0), (0, 1000, 10, 0.5), (2, 0, 3, 0.5),
-     (4, 70001, 700, 0.01), (4, 70001, 50000, 0.6)],
+     (4, 70001, 700, 0.01), (4, 70001, 50000, 0.6), (5, 4099, 1000, 0.7),
+     (3, 8209, 9000, 0.9), (7, 17, 17, 0.5), (2, 15, 3, 1.0), (2, 40962, 41000, 0.3)],
 )
 def test_masked_compact_kernel(cuda, B, N, m, density):
     """All-false, all-true, m = 1, N = 1, B = 0, N = 0, overflow past m,
-    several tiles a row; int32 and uint8 columns, bit for bit with the
-    plain version, fills included."""
+    several tiles a row, N no multiple of 16 (rows at every alignment, a
+    thread's last 16 elements cut short), m below the count and m past N;
+    int32 and uint8 columns, bit for bit with the plain version, fills
+    included."""
     rng = np.random.default_rng(N + m)
     mask = torch.from_numpy(rng.random((B, N)) < density).to(cuda)
     cols = [
@@ -357,14 +367,104 @@ def test_masked_compact_kernel(cuda, B, N, m, density):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-def test_hpc_compress_kernel(cuda):
-    codes, lengths = _batch(6, B=4, L=1 << 17, runs=True)
+@pytest.mark.parametrize("B,L", [(4, 1 << 17), (3, 4099), (1, 17), (5, 40001)])
+def test_hpc_compress_kernel(cuda, B, L):
+    """K4's HPC form against its plain version, hpc_compress_packed:
+    packed column, pads and count; reads of length 0, past L and ragged;
+    rows at every alignment.  One launch a call."""
+    codes, lengths = _batch(6 + L, B=B, L=L, runs=True)
+    lengths[B - 1] = 0 if B > 1 else L + 5
     codes, lengths = codes.to(cuda), lengths.to(cuda)
-    got = hpc_compress(codes, lengths)
-    want = hpc_compress(codes, lengths, compact)
+    before = build.launches["hpc_compact"]
+    got = hpc_compact(codes, lengths)
+    want = hpc_compress_packed(codes, lengths)
+    torch.cuda.synchronize()
+    assert build.launches["hpc_compact"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _general_inputs(cuda, spec, B, L, seed):
+    """The general scan's inputs as the pipeline makes them: K4's HPC form
+    in the hpc modes; ragged reads, a read of exactly l bases, one of 0."""
+    codes, lengths = _batch(seed, B=B, L=L, runs=True)
+    if B > 2:
+        lengths[1] = min(spec.l, L)
+        lengths[2] = 0
+    codes, lengths = codes.to(cuda), lengths.to(cuda)
+    if spec.is_hpc:
+        stream, eff_len = hpc_compact(codes, lengths)
+    else:
+        stream, eff_len = codes, lengths
+    return stream, eff_len, lengths
+
+
+GENERAL_SCAN_CASES = [
+    (mode, l, w, v)
+    for mode in ("regular", "simd", "hpc", "hpcsimd")
+    for l in (1, 256, 301, 5000)
+    for w, v in ((32, "nthash1"), (16, "nthash1"), (64, "nthash1"), (32, "nthash2"))
+    if w == 32 or mode in ("regular", "hpc")
+]
+
+
+@pytest.mark.parametrize("mode,l,hash_width,variant", GENERAL_SCAN_CASES)
+def test_general_scan_kernel(cuda, mode, l, hash_width, variant):
+    """The general scan against its plain version, bit for bit: every mode
+    and width, l = 1, 256, 301 and past the 4096-window tile, short reads,
+    a capacity below the count (stream overflow) and one past it."""
+    spec = PipelineSpec(l=l, k=5, density=0.3 if l == 1 else 0.02, mode=mode,
+                        hash_width=hash_width, variant=variant)
+    stream, eff_len, lengths = _general_inputs(cuda, spec, 5, 50000, l + hash_width)
+    args = (stream, eff_len, lengths, l, spec.bound, spec.strict_threshold, mode,
+            hash_width, variant)
+    for m in (spec.capacity_for(50000), 37):
+        before = build.launches["general_scan"]
+        got = general_minimizers(*args, m)
+        want = general_minimizers_plain(*args, m)
+        torch.cuda.synchronize()
+        assert build.launches["general_scan"] == before + 1
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w))
+        assert int(got[5][0]) > 37 and int(got[5][1]) == 0 == int(got[5][2])
+
+
+@pytest.mark.parametrize("mode,hash_width", [("regular", 32), ("hpc", 32), ("hpcsimd", 32),
+                                             ("regular", 64), ("hpc", 16)])
+@pytest.mark.parametrize("l", [1, 300, 4100])
+def test_general_scan_kernel_ragged_rows(cuda, mode, hash_width, l):
+    """Rows of 40,001 elements, so the rows of xcodes and of the packed
+    stream start at every alignment, and the last tile is cut short."""
+    spec = PipelineSpec(l=l, k=5, density=0.3 if l == 1 else 0.05, mode=mode,
+                        hash_width=hash_width)
+    stream, eff_len, lengths = _general_inputs(cuda, spec, 4, 40001, l + 7)
+    args = (stream, eff_len, lengths, l, spec.bound, spec.strict_threshold, mode,
+            hash_width, "nthash1", spec.capacity_for(40001))
+    got, want = general_minimizers(*args), general_minimizers_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert (g is None and w is None) or torch.equal(g, w)
+    assert int(got[5][0]) > 0
+
+
+@pytest.mark.parametrize("mode", ["regular", "hpc", "hpcsimd"])
+@pytest.mark.parametrize("l", [1, 300])
+def test_general_scan_kernel_edges(cuda, mode, l):
+    """B = 1 with L = l + 1 (one window), a read longer than its padded
+    row, m = 1, and a row whose windows all pass the bound (d = 1)."""
+    for density, L, n in ((1.0, l + 1, l + 1), (1.0, l + 1, l + 9), (0.5, 3 * l + 7, 2 * l)):
+        spec = PipelineSpec(l=l, k=1, density=density, mode=mode)
+        codes, _ = _batch(L, B=1, L=L)
+        lengths = torch.tensor([n], dtype=torch.int32, device=cuda)
+        codes = codes.to(cuda)
+        stream, eff_len = hpc_compact(codes, lengths) if spec.is_hpc else (codes, lengths)
+        for m in (1, L):
+            args = (stream, eff_len, lengths, l, spec.bound, spec.strict_threshold, mode,
+                    32, "nthash1", m)
+            got, want = general_minimizers(*args), general_minimizers_plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w)
 
 
 @pytest.mark.parametrize(
@@ -374,8 +474,9 @@ def test_hpc_compress_kernel(cuda):
      ("simd", 300, 32, "nthash2"), ("regular", 400, 64, "nthash1")],
 )
 def test_general_pipeline_kernels_match_plain(cuda, mode, l, hash_width, variant):
-    """The general path launches K4 (twice in the hpc modes) and K3, never
-    K1 or K2, and equals the plain pipeline in all 12 fields."""
+    """The general path launches K4's HPC form (hpc modes only), the
+    general scan and K3, never K1, K2 or K4's masked form, and equals the
+    plain pipeline in all 12 fields."""
     codes, lengths = _batch(l, B=4, L=1 << 16, runs=True)
     spec = PipelineSpec(
         l=l, k=5, density=0.3 if l == 1 else 0.01, mode=mode,
@@ -387,9 +488,10 @@ def test_general_pipeline_kernels_match_plain(cuda, mode, l, hash_width, variant
     want = kminmer_pipeline_plain(codes, lengths, spec)
     torch.cuda.synchronize()
     ran = {name: build.launches[name] - before.get(name, 0) for name in build.launches}
-    assert ran.get("masked_compact") == (2 if spec.is_hpc else 1)
-    assert ran.get("assemble") == 1
+    assert ran.get("hpc_compact", 0) == (1 if spec.is_hpc else 0)
+    assert ran.get("general_scan") == 1 and ran.get("assemble") == 1
     assert not ran.get("fused_scan") and not ran.get("slot_compact")
+    assert not ran.get("masked_compact")
     assert int(got.n_kminmers.sum()) > 0
     for name, g, w in zip(got._fields, got, want):
         assert torch.equal(g, w), name
@@ -494,6 +596,68 @@ def test_kminmers_long_on_card(cuda, mode, hash_width):
             for key in w:
                 assert np.array_equal(g[key], w[key]), (chunk, key)
     assert len(want[0]["hash"]) > 1000 and len(want[2]["hash"]) == 0
+
+
+# ---- the overflow rescue on the card ------------------------------------------
+
+
+def _count_rescues(monkeypatch, module):
+    """Record each rescue_spec call that ``module`` makes."""
+    calls, real = [], api.rescue_spec
+
+    def rescue_spec(spec, needed=0):
+        calls.append(needed)
+        return real(spec, needed)
+
+    monkeypatch.setattr(module, "rescue_spec", rescue_spec)
+    return calls
+
+
+@pytest.mark.parametrize(
+    "mode,l,tile_cap,family",
+    [("hpcsimd", 11, 8, "simd"), ("hpc", 301, None, "scalar")],
+    ids=["fused", "general"],
+)
+def test_overflow_rescue_on_card(cuda, monkeypatch, mode, l, tile_cap, family):
+    """The twins of the CPU rescue tests (test_torch_pipeline.py and
+    test_torch_general.py): tiny tile and stream capacities overflow on the
+    card, kminmers_batch retries through the kernels, ends lossless, and
+    equals its run on the CPU in all 12 fields."""
+    seq = FIXTURE.read_text().split("\n")[1][:20000]
+    codes = np.full((1, 32768), XCODE_PAD, dtype=np.uint8)
+    codes[0, : len(seq)] = encode_xcodes(seq, family)
+    lengths = torch.tensor([len(seq)], dtype=torch.int32)
+    spec = PipelineSpec(l=l, k=3, density=0.05, mode=mode, max_minimizers=64,
+                        tile_cap=tile_cap)
+    first = kminmer_pipeline(torch.from_numpy(codes).to(cuda), lengths.to(cuda), spec)
+    assert int(first.n_minimizers[0]) < int(first.n_minimizers_raw[0])
+    calls = _count_rescues(monkeypatch, api)
+    before = dict(build.launches)
+    out = kminmers_batch(torch.from_numpy(codes).to(cuda), lengths.to(cuda), spec)
+    ran = {name: build.launches[name] - before.get(name, 0) for name in build.launches}
+    assert len(calls) >= 1 and ran["assemble"] == len(calls) + 1
+    key = "fused_scan" if spec.fused else "general_scan"
+    assert ran[key] == len(calls) + 1
+    assert torch.equal(out.n_minimizers, out.n_minimizers_raw)
+    want = kminmers_batch(torch.from_numpy(codes), lengths, spec)
+    for name, g, w in zip(out._fields, out, want):
+        assert torch.equal(g.cpu(), w), name
+    assert int(out.n_kminmers[0]) > 64
+
+
+def test_long_read_rescue_on_card(cuda, monkeypatch):
+    """The twin of test_torch_long_read.py's rescue test: 128 survivor
+    slots a tile at d = 0.9 overflow every chunk on the card; phase C
+    reruns them and the stream equals the CPU run's."""
+    seq = "ACGT" * 1500
+    codes = encode_xcodes(seq, "scalar")
+    spec = PipelineSpec(l=5, k=2, density=0.9, mode="regular", tile_cap=128)
+    calls = _count_rescues(monkeypatch, long_read)
+    got = long_read.minimizer_stream_long(codes, spec, chunk=1024, device=cuda)
+    assert len(calls) == 1 and calls[0] > 128
+    want = long_read.minimizer_stream_long(codes, spec, chunk=1024, device="cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
 
 
 # ---- K1's tile-parallel passes ------------------------------------------------

@@ -26,6 +26,7 @@ from rust_seq2kminmers_torch.ops.pipeline import (
 )
 from rust_seq2kminmers_tpu.ops.pipeline import KminmerBatch as JaxBatch
 from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec as JaxSpec
+from rust_seq2kminmers_tpu.api import kminmers_list as jax_kminmers_list
 from rust_seq2kminmers_tpu.ops.pipeline import kminmer_pipeline as jax_pipeline
 from rust_seq2kminmers_tpu.oracle import HashMode
 from rust_seq2kminmers_tpu.oracle import kminmers as oracle_kminmers
@@ -196,6 +197,19 @@ def test_ksize_limits_match_reference():
                 seq, l, 2, 0.5, HashMode(mode), 32, kw.get("variant", "nthash1")
             )
             assert _records(recs) == _records(want)
+
+
+@pytest.mark.parametrize("seq", ["ACG", "ACGT" * 100])
+def test_unknown_mode_raises_like_reference(seq):
+    """An unknown mode raises ValueError before any length check, as the
+    reference's HashMode(...) does, on a read shorter than l too."""
+    with pytest.raises(ValueError):
+        jax_kminmers_list(seq, 10, 3, 0.1, "foo")
+    with pytest.raises(ValueError):
+        kminmers_list(seq, 10, 3, 0.1, "foo", device="cpu")
+    with pytest.raises(ValueError):
+        KminmersIterator(seq, 10, 3, 0.1, "foo", device="cpu")
+    assert kminmers_list(seq[:3], 10, 3, 0.1, HashMode.Hpc, device="cpu") == []
 
 
 def test_general_path_rescue_is_lossless(ecoli_seq):

@@ -1,7 +1,7 @@
-"""K4's plain version (rust_seq2kminmers_torch/ops/cuda/masked_compact.py,
-which takes ops/compact.py on CPU tensors) and the port's HPC compaction
-(ops/hpc.py) against the reference package's masked_compact Pallas kernel
-and hpc_compress in interpret mode.  The reference leaves its slots past
+"""K4's plain versions (rust_seq2kminmers_torch/ops/cuda/masked_compact.py,
+which takes ops/compact.py and ops/hpc.py on CPU tensors) against the
+reference package's masked_compact Pallas kernel and hpc_compress in
+interpret mode.  The reference leaves its slots past
 the count undefined, so it is compared up to the count; the port's fills
 past it are checked on their own.  All values are integers: equality is
 exact."""
@@ -13,7 +13,7 @@ import torch
 
 from rust_seq2kminmers_torch.ops import hpc as port_hpc
 from rust_seq2kminmers_torch.ops.compact import compact
-from rust_seq2kminmers_torch.ops.cuda.masked_compact import masked_compact
+from rust_seq2kminmers_torch.ops.cuda.masked_compact import hpc_compact, masked_compact
 from rust_seq2kminmers_tpu.constants import XCODE_PAD, encode_xcodes
 from rust_seq2kminmers_tpu.ops import hpc as jax_hpc
 from rust_seq2kminmers_tpu.ops.pallas.compact_kernel import GROUP
@@ -106,8 +106,9 @@ def test_masked_compact_rejects_bad_input():
 
 @pytest.mark.parametrize("family", ["scalar", "simd"])
 def test_hpc_compress_matches_reference(family):
-    """The packed HPC compaction (one (pos << 3) | code column, m = L)
-    against the reference's K4 route, pads included."""
+    """K4's HPC form on the CPU (one (pos << 3) | code column, m = L): its
+    codes, positions and pads, and the count, against the reference's K4
+    route."""
     rng = np.random.default_rng(len(family))
     B, L = 3, 2048
     codes = np.full((B, L), XCODE_PAD, dtype=np.uint8)
@@ -115,7 +116,8 @@ def test_hpc_compress_matches_reference(family):
     for b in range(B):
         s = "".join(rng.choice(list("AAACCGGTTTNacgQ"), size=int(lengths[b])))
         codes[b, : lengths[b]] = encode_xcodes(s, family)
-    got = port_hpc.hpc_compress(torch.from_numpy(codes), torch.from_numpy(lengths))
+    pk, count = hpc_compact(torch.from_numpy(codes), torch.from_numpy(lengths))
+    got = ((pk & 7).to(torch.uint8), pk >> 3, count)
     want = jax_hpc.hpc_compress(
         jnp.asarray(codes), jnp.asarray(lengths), "pallas_interpret"
     )
