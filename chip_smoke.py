@@ -16,9 +16,10 @@ a numpy seed, after building the CUDA kernels from
     at width 64;
 
 then the long-read path (one 300 Mbp random-ACGT read through
-``kminmers_long``: K1 with its carry chunk by chunk -> K2 -> K3) and the
+``kminmers_long``: K1 with its carry chunk by chunk -> K2 -> K3), the
 profiling script (``rust_seq2kminmers_torch/scripts/prof_mxu_compact.py``:
-K5 and K6).
+K5 and K6), and the file path (a FASTA through the reader and the
+streaming runner, batches of the fused route; and the command line).
 
 In order, and any failure raises (exit code != 0):
 
@@ -76,7 +77,20 @@ In order, and any failure raises (exit code != 0):
      and K2 on a [1, 2^25] chunk, K3 on the read's whole [1, M] minimizer
      stream; K1's time per chunk beside the one-block-per-read time and
      the bound; K2 on the chunk with and without its fill (the long-read
-     driver's form), checked and timed.
+     driver's form), checked and timed;
+ 11. runs the file path with the counters at zero: a seeded FASTA of ~0.5
+     Gbp (``rust_seq2kminmers_torch/scripts/prof_stream.py``: 24,000 HiFi-like
+     reads of 10-30 kb, 50,000 short reads, 4 wrapped contigs of 2-4 Mbp)
+     through the streaming runner with the CLI's defaults (regular, l=31,
+     k=5, d=0.01) and the main spec (hpcsimd): a first and two warm runs
+     each (wall, GB/s, packing, first result, batches, buckets) and one
+     profiled run (device busy, idle share, device time by kernel); K1, K2
+     and K3 must have launched.  Checks that the records are ordered, that
+     256 random reads and the 4 contigs equal ``kminmers_list`` on the card,
+     that a ~2 Mbp prefix gives the same six columns on the card and on the
+     CPU, that ``python -m rust_seq2kminmers_torch`` prints 1942 k-min-mers
+     for the fixture, that the demo prints the same on the card as on the
+     CPU, and that ``kminmers_vec`` agrees on the card and the CPU.
 
 Then summary lines of K1 against its one-block-per-read design, of K2
 and K3 against their designs before the redesign, and of K4 and the
@@ -197,6 +211,118 @@ def check(ok, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def file_phase(dev, card, counters) -> dict:
+    """Phase 11: a seeded FASTA of ~0.5 Gbp (``scripts/prof_stream.py``)
+    through the streaming runner; -> the kernels' launches while it ran."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rust_seq2kminmers_torch import kminmers_list
+    from rust_seq2kminmers_torch.__main__ import demo
+    from rust_seq2kminmers_torch.kminmer import kminmers_vec
+    from rust_seq2kminmers_torch.ops.cuda import build
+    from rust_seq2kminmers_torch.scripts import prof_stream as ps
+
+    columns = ("hash", "start", "end", "offset", "rev", "read")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "reads.fa"
+        t0 = time.perf_counter()
+        reads = ps.make_reads()
+        total = ps.write_fasta(path, reads)
+        log(f"file path: {len(reads)} records, {total} bases, {path.stat().st_size} bytes of "
+            f"FASTA written in {time.perf_counter() - t0:.2f} s")
+
+        # The runs, counters at 0: per spec one first and two warm runs,
+        # then one warm run under the profiler.
+        build.launches.clear()
+        kept = {}
+        for what, spec in ps.SPECS.items():
+            for i in range(3):
+                stats, recs, _ = ps.run(path, spec, dev)
+                if i == 0:
+                    kept[what] = (spec, stats, recs)
+                log(f"file path, {what}, {'first' if i == 0 else 'warm'} run on {card}: "
+                    f"{ps.describe(stats)}")
+            log(f"file path, {what}, warm run under the profiler on {card}: "
+                + ps.describe_profile(ps.run(path, spec, dev, profiled=True)[2]))
+        torch.cuda.synchronize()
+        ran = {c: build.launches[c] for c in counters}
+        log(f"file path launches: {ran}")
+        for name in ("fused_scan", "slot_compact", "assemble"):
+            check(ran[name] > 0, f"the file path never launched {name}")
+
+        # The records: ordered, and each of 256 random reads and the 4
+        # contigs equal to kminmers_list on that read alone.
+        rng = np.random.default_rng(SEED + 3)
+        n_contig = int(reads.wrapped.sum())
+        held = np.concatenate([rng.choice(len(reads) - n_contig, 256, replace=False),
+                               np.arange(len(reads) - n_contig, len(reads))])
+        for what, (spec, stats, recs) in kept.items():
+            read = recs["read"]
+            check(stats.num_records == len(reads) and stats.total_bases == total
+                  and stats.total_kminmers == len(read), f"{what}: stream counts")
+            check(bool((np.diff(read) >= 0).all()), f"{what}: read ids not ascending")
+            first = np.searchsorted(read, read, "left")
+            check(np.array_equal(recs["offset"], np.arange(len(read)) - first),
+                  f"{what}: offsets are not 0..n-1 within each read")
+            for i in held:
+                lo, hi = np.searchsorted(read, [i, i + 1])
+                want = kminmers_list(reads.seq(i).tobytes(), spec.l, spec.k, spec.density,
+                                     spec.mode, device=dev)
+                got = [(int(recs["hash"][j]), int(recs["start"][j]), int(recs["end"][j]),
+                        int(recs["offset"][j]), bool(recs["rev"][j])) for j in range(lo, hi)]
+                check(got == [(r.hash, r.start, r.end, r.offset, r.rev) for r in want],
+                      f"{what}: read {i} differs from kminmers_list")
+            log(f"file path, {what}: {len(read)} k-min-mers, ordered by read then offset; "
+                f"{len(held)} reads (256 random, {n_contig} contigs) equal kminmers_list on the card")
+        del kept
+
+        # A ~2 Mbp prefix of the file: the card's stream equals the CPU's.
+        count = min(len(reads), int(np.searchsorted(reads.starts, 2_000_000)))
+        prefix = Path(tmp) / "prefix.fa"
+        n_prefix = ps.write_fasta(prefix, reads, count)
+        for what, spec in ps.SPECS.items():
+            got = ps.run(prefix, spec, dev)[1]
+            t0 = time.perf_counter()
+            want = ps.run(prefix, spec, "cpu")[1]
+            cpu_s = time.perf_counter() - t0
+            for c in columns:
+                check(got[c].dtype == want[c].dtype and np.array_equal(got[c], want[c]),
+                      f"{what}: prefix column {c} differs from the CPU run")
+            log(f"file path, {what}: the {count}-record, {n_prefix}-base prefix gives the same "
+                f"{len(got['hash'])} records in all six columns on the card and on the CPU "
+                f"(CPU run {cpu_s:.2f} s)")
+
+    # The CLI on the fixture, the demo and kminmers_vec.
+    proc = subprocess.run(
+        [sys.executable, "-m", "rust_seq2kminmers_torch", "tests/data/ecoli.genome.100k.fa", "4"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    check(proc.returncode == 0 and "1942 k-min-mers from 99925 bases" in proc.stdout,
+          f"the CLI on the fixture: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    log("CLI: " + " | ".join(proc.stdout.strip().splitlines()))
+    shown = {}
+    for d in (dev, "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            demo(device=d)
+        shown[str(d)] = buf.getvalue()
+    check(shown[str(dev)] == shown["cpu"], "the demo on the card differs from the CPU")
+    log(f"demo: the card prints the CPU's {len(shown['cpu'].splitlines())} lines")
+    seq = (REPO / "tests/data/ecoli.genome.100k.fa").read_text().split("\n")[1]
+    vecs = {str(d): [(v.mers, v.start, v.end, v.offset, v.rev)
+                     for v in kminmers_vec(seq, 31, 5, 0.01, "regular", device=d)]
+            for d in (dev, "cpu")}
+    check(vecs[str(dev)] == vecs["cpu"] and len(vecs["cpu"]) == 1942,
+          "kminmers_vec on the card differs from the CPU")
+    log(f"kminmers_vec on the fixture: {len(vecs['cpu'])} records, equal on the card and the CPU")
+    return ran
 
 
 def main():
@@ -1031,7 +1157,11 @@ def main():
     want3 = assemble_plain(mh_d, lspec.k)
     record("assemble", f"long read: [1, {mh.shape[0]}] minimizer hashes",
            max_abs_err([*got3[0], got3[1]], [*want3[0], want3[1]]))
-    del got, got2, want2, got3, want3, mh_d
+    del got, got2, want2, got3, want3, mh_d, seq, recs, prefix, halves, batch
+
+    # 11. the file path, counters at 0 just before
+    for name, n in file_phase(dev, card, counters).items():
+        launches[name] += n
 
     log("K1 against its one-block-per-read design, on " + card + ": " + "; ".join(
         f"{what} {t:.4f} ms (one block per read {K1_ONE_BLOCK_MS[what]}, bound "

@@ -12,6 +12,7 @@ reference package, which imports jax.
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Iterator, List
 
 import numpy as np
@@ -30,6 +31,16 @@ MAX_L_HPC = 255
 
 class KSizeTooBig(ValueError):
     """l is past the reference's limit for the mode."""
+
+
+class HashMode(enum.Enum):
+    """The reference's HashMode enum (src/lib.rs:22-27); every entry point
+    takes it or its value."""
+
+    Regular = "regular"
+    Hpc = "hpc"
+    Simd = "simd"
+    HpcSimd = "hpcsimd"
 
 
 @dataclasses.dataclass
@@ -116,6 +127,26 @@ def kminmers_batch(codes, lengths, spec: PipelineSpec, max_retries: int = 8):
     )
 
 
+def run_single(seq, spec: PipelineSpec, device: torch.device):
+    """One sequence (str, bytes or an integer array of xcodes), padded to
+    a power-of-two length, through ``kminmers_batch`` -> its one-row
+    KminmerBatch, or None when it is too short for a window."""
+    if isinstance(seq, np.ndarray) and np.issubdtype(seq.dtype, np.integer):
+        codes = seq.astype(np.uint8, copy=False)
+    else:
+        codes = encode_xcodes(seq, family_of_mode(spec.mode))
+    n = len(codes)
+    if n <= spec.l:
+        return None
+    padded = np.full((1, _bucket_length(n)), XCODE_PAD, dtype=np.uint8)
+    padded[0, :n] = codes
+    return kminmers_batch(
+        torch.from_numpy(padded).to(device),
+        torch.tensor([n], dtype=torch.int32, device=device),
+        spec,
+    )
+
+
 def kminmers_list(
     seq, l: int, k: int, density: float, mode="regular", device="cuda",
     strict_limits: bool = True, hash_width: int = 32, variant: str = "nthash1",
@@ -133,26 +164,12 @@ def kminmers_list(
             raise KSizeTooBig(f"l={l} exceeds {MAX_L_SIMD} for SIMD modes")
         if mode == "hpc" and l > MAX_L_HPC:
             raise KSizeTooBig(f"l={l} exceeds {MAX_L_HPC} for Hpc mode")
-    if isinstance(seq, np.ndarray) and np.issubdtype(seq.dtype, np.integer):
-        codes = seq.astype(np.uint8, copy=False)
-    else:
-        codes = encode_xcodes(seq, family_of_mode(mode))
-    n = len(codes)
-    if n <= l:
-        return []
-    L = _bucket_length(max(n, l + 1))
-    padded = np.full((1, L), XCODE_PAD, dtype=np.uint8)
-    padded[0, :n] = codes
     spec = PipelineSpec(
         l=l, k=k, density=density, mode=mode, hash_width=hash_width,
         variant=variant,
     )
-    out = kminmers_batch(
-        torch.from_numpy(padded).to(device),
-        torch.tensor([n], dtype=torch.int32, device=device),
-        spec,
-    )
-    nk = int(out.n_kminmers[0])
+    out = run_single(seq, spec, device)
+    nk = 0 if out is None else int(out.n_kminmers[0])
     if nk == 0:
         return []
     hashes = to_py_u64((out.hash_hi[0, :nk], out.hash_lo[0, :nk]))

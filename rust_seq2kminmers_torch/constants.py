@@ -86,6 +86,14 @@ _SIMD_NIBBLE_LUT = np.array(
 )
 BYTE_TO_CODE_SIMD = _SIMD_NIBBLE_LUT[np.arange(256) & 0x0F]
 
+# The plain-code table of ``encode_bases`` and ``FastaFile.pack(family=None)``:
+# ACGTN in either case, every other byte OTHER.
+BYTE_TO_CODE = BYTE_TO_CODE_SCALAR.copy()
+for _b, _c in zip(b"acgtn", (CODE_A, CODE_C, CODE_G, CODE_T, CODE_N)):
+    BYTE_TO_CODE[_b] = _c
+
+CODE_TO_BYTE = np.frombuffer(b"ACGTN??", dtype=np.uint8).copy()
+
 XCODE_KEEP = 8  # bit 3: this base differs from the previous raw byte
 XCODE_PAD = XCODE_KEEP | CODE_PAD
 
@@ -118,16 +126,26 @@ def with_keep_bits(codes: np.ndarray) -> np.ndarray:
     return (low | np.where(keep, XCODE_KEEP, 0)).astype(np.uint8)
 
 
+def _to_byte_array(seq: bytes | str | np.ndarray) -> np.ndarray:
+    if isinstance(seq, str):
+        seq = seq.encode("latin-1")
+    if isinstance(seq, np.ndarray):
+        return seq.astype(np.uint8, copy=False)
+    return np.frombuffer(bytes(seq), dtype=np.uint8)
+
+
+def encode_bases(seq: bytes | str | np.ndarray) -> np.ndarray:
+    """ASCII sequence -> uint8 plain codes (A=0 C=1 G=2 T=3 N=4 in either
+    case, other=5), without keep bits; ``encode_xcodes`` is the pipeline's
+    encoder."""
+    return BYTE_TO_CODE[_to_byte_array(seq)]
+
+
 def encode_xcodes(
     seq: bytes | str | np.ndarray, family: str = "scalar"
 ) -> np.ndarray:
     """ASCII sequence -> uint8 xcodes: (raw-byte-diff keep << 3) | code."""
-    if isinstance(seq, str):
-        seq = seq.encode("latin-1")
-    if isinstance(seq, np.ndarray):
-        b = seq.astype(np.uint8, copy=False)
-    else:
-        b = np.frombuffer(bytes(seq), dtype=np.uint8)
+    b = _to_byte_array(seq)
     codes = code_table(family)[b]
     if len(b) == 0:
         return codes

@@ -28,7 +28,7 @@ DENSITIES = [0.0, 1e-6, 0.0001, 0.001, 0.01, 0.0333, 0.05, 0.1, 0.5, 0.999, 1.0]
         "SEED_TABLE_F", "SEED_TABLE_R", "BYTE_TO_CODE_SCALAR",
         "BYTE_TO_CODE_SIMD", "CODE_A", "CODE_C", "CODE_G", "CODE_T",
         "CODE_N", "CODE_OTHER", "CODE_PAD", "NUM_CODES", "XCODE_KEEP",
-        "XCODE_PAD", "U32_MAX", "MASK32", "U64_MAX",
+        "XCODE_PAD", "U32_MAX", "MASK32", "U64_MAX", "BYTE_TO_CODE", "CODE_TO_BYTE",
     ],
 )
 def test_constant_equals_reference(name):
@@ -51,6 +51,8 @@ def test_encoders_equal_reference(family):
             np.testing.assert_array_equal(
                 pc.encode_xcodes(seq, family), jc.encode_xcodes(seq, family)
             )
+        for seq in (raw, raw.tobytes(), raw.tobytes().decode("latin-1")):
+            np.testing.assert_array_equal(pc.encode_bases(seq), jc.encode_bases(seq))
     codes = rng.integers(0, 7, size=(3, 500))
     codes[:, 100:200] = 2  # runs
     np.testing.assert_array_equal(pc.with_keep_bits(codes), jc.with_keep_bits(codes))
@@ -134,8 +136,9 @@ def test_spec_from_jax_rejects_unported_widths():
 
 def test_port_imports_without_jax():
     """With jax made unimportable, the port imports and runs its CPU
-    pipeline and long-read path, imports its profiling script, and never
-    loads the reference package."""
+    pipeline, long-read path, file reader, streaming runner and command
+    line, imports its profiling script, and never loads the reference
+    package."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -145,6 +148,8 @@ from rust_seq2kminmers_torch import convert
 from rust_seq2kminmers_torch.ops.cuda import build, fused_scan, slot_compact, assemble_kernel, masked_compact, inrow_compact
 from rust_seq2kminmers_torch.ops import long_read
 from rust_seq2kminmers_torch.scripts import prof_long_read, prof_mxu_compact
+from rust_seq2kminmers_torch import hpc_strings, kminmer, __main__ as cli
+from rust_seq2kminmers_torch.io import fasta, stream
 codes = p.constants.with_keep_bits(np.random.default_rng(0).integers(0, 4, (2, 4096)))
 for spec in (p.PipelineSpec(l=31, k=5, density=0.05, mode="hpcsimd"),
              p.PipelineSpec(l=301, k=5, density=0.05, mode="hpc", hash_width=64)):
@@ -154,6 +159,15 @@ assert len(p.kminmers_list("ACGT" * 100, 10, 3, 0.2, "hpc", device="cpu")) > 0
 assert len(p.kminmers_long("ACGTTGCA" * 500, 10, 3, 0.2, "hpc", chunk=1024, device="cpu")["hash"]) > 0
 assert len(prof_mxu_compact.tile_inputs()[4][0]) == 4
 assert prof_long_read.random_read(64).shape == (64,)
+assert hpc_strings.hpc("AACCGT") == "ACGT" and len(kminmer.kminmers_vec("ACGT" * 100, 10, 3, 0.2, device="cpu")) > 0
+import contextlib, io
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert cli.main(["tests/data/ecoli.genome.100k.fa", "2", "--device", "cpu"]) == 0
+assert "1942 k-min-mers from 99925 bases" in buf.getvalue(), buf.getvalue()
+with fasta.FastaFile("tests/data/ecoli.genome.100k.fa") as f:
+    assert f.native and len(f) == 1
+assert stream.stream_file("tests/data/ecoli.genome.100k.fa", p.PipelineSpec(l=31, k=5, density=0.01), device="cpu").total_kminmers == 1942
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "rust_seq2kminmers_tpu")]
 assert bad == ["jax"] and sys.modules["jax"] is None, bad
 print("ok")

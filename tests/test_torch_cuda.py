@@ -775,3 +775,78 @@ def test_fused_scan_kernel_long_row(cuda):
     assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(valid_slots(g, got[3]), w)
+
+
+# ---- the file path on the card ------------------------------------------------
+
+from rust_seq2kminmers_torch import __main__ as cli  # noqa: E402
+from rust_seq2kminmers_torch.io import stream  # noqa: E402
+from rust_seq2kminmers_torch.kminmer import kminmers_vec  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def mixed_fasta(tmp_path_factory):
+    """Reads of 0-3900 bases in three buckets, wrapped at 70 columns."""
+    rng = np.random.default_rng(7)
+    seqs = ["".join(rng.choice(list("ACGTNacgt"), size=int(n), p=[0.22] * 4 + [0.04] + [0.02] * 4))
+            for n in rng.choice([0, 8, 60, 400, 1100, 1900, 2500, 3900], size=60)]
+    p = tmp_path_factory.mktemp("stream") / "mixed.fa"
+    p.write_text("".join(f">r{i}\n" + "".join(s[j : j + 70] + "\n" for j in range(0, len(s), 70))
+                         for i, s in enumerate(seqs)))
+    return p
+
+
+def _streamed(path, spec, device, target_cells=1 << 14):
+    with stream.StreamingRunner(path, spec, target_cells=target_cells, device=device) as r:
+        stats = r.run()
+        return stats, r.collect()
+
+
+@pytest.mark.parametrize("mode,l,hash_width,variant", [
+    ("regular", 31, 32, "nthash1"), ("simd", 9, 32, "nthash1"), ("hpc", 11, 32, "nthash1"),
+    ("hpcsimd", 31, 32, "nthash1"), ("hpc", 301, 32, "nthash1"), ("regular", 400, 64, "nthash1"),
+])
+def test_stream_on_card_equals_cpu(cuda, mixed_fasta, mode, l, hash_width, variant):
+    spec = PipelineSpec(l=l, k=4, density=0.05, mode=mode, hash_width=hash_width, variant=variant)
+    build.launches.clear()
+    stats, got = _streamed(mixed_fasta, spec, cuda)
+    used = ("fused_scan", "slot_compact") if spec.fused else ("general_scan",)
+    for name in used + ("assemble",):
+        assert build.launches[name] >= stats.batches, name
+    cpu_stats, want = _streamed(mixed_fasta, spec, "cpu")
+    assert stats.batches == cpu_stats.batches > stats.buckets >= 3
+    for c in want:
+        assert got[c].dtype == want[c].dtype
+        np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+    assert stats.total_kminmers == len(got["hash"]) > 0
+
+
+def test_stream_rescue_on_card(cuda, mixed_fasta, monkeypatch):
+    """max_minimizers=8 overflows the streamed batches: each reruns through
+    the rescue on the card and ends equal to the CPU run."""
+    calls = _count_rescues(monkeypatch, api)
+    spec = PipelineSpec(l=9, k=3, density=0.2, mode="regular", max_minimizers=8)
+    _, got = _streamed(mixed_fasta, spec, cuda)
+    assert calls
+    monkeypatch.undo()
+    _, want = _streamed(mixed_fasta, spec, "cpu")
+    for c in want:
+        np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+
+
+def test_cli_on_card(cuda, capsys):
+    assert cli.main([str(FIXTURE), "4"]) == 0
+    out = capsys.readouterr().out
+    assert "1942 k-min-mers from 99925 bases" in out
+    assert f"device {torch.cuda.get_device_name(cuda)}" in out
+
+
+@pytest.mark.parametrize("mode,hash_width", [("regular", 32), ("simd", 32), ("hpc", 32),
+                                             ("hpcsimd", 32), ("regular", 16), ("hpc", 64)])
+def test_kminmers_vec_on_card(cuda, mode, hash_width):
+    seq = FIXTURE.read_text().split("\n")[1]
+    got = kminmers_vec(seq, 31, 5, 0.01, mode, hash_width, device=cuda)
+    want = kminmers_vec(seq, 31, 5, 0.01, mode, hash_width, device="cpu")
+    assert len(got) > 100
+    assert [(v.mers, v.start, v.end, v.offset, v.rev) for v in got] == [
+        (v.mers, v.start, v.end, v.offset, v.rev) for v in want]
