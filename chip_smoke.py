@@ -18,8 +18,12 @@ a numpy seed, after building the CUDA kernels from
 then the long-read path (one 300 Mbp random-ACGT read through
 ``kminmers_long``: K1 with its carry chunk by chunk -> K2 -> K3), the
 profiling script (``rust_seq2kminmers_torch/scripts/prof_mxu_compact.py``:
-K5 and K6), and the file path (a FASTA through the reader and the
-streaming runner, batches of the fused route; and the command line).
+K5 and K6), the file path (a FASTA through the reader and the
+streaming runner, batches of the fused route; and the command line), and
+the multi-process layer (``rust_seq2kminmers_torch/parallel``: the
+data-parallel step, the sequence-sharded step, whose shards run K1's
+passes 1-2, K1 from the carry, K2 and K3, and the distributed file runner,
+in worlds of spawned ranks on the one card).
 
 In order, and any failure raises (exit code != 0):
 
@@ -92,6 +96,22 @@ In order, and any failure raises (exit code != 0):
      for the fixture, that the demo prints the same on the card as on the
      CPU, and that ``kminmers_vec`` agrees on the card and the CPU.
 
+ 12. runs the multi-process layer, the counters at zero in each rank before
+     its run, each rank a process from ``parallel/launch.run_world``:
+     (a) the data-parallel step on [32, 1 Mbp] with the main spec, an NCCL
+     world of one: all 12 fields equal ``kminmers_batch`` and
+     ``merge_ordered`` equals ``stitch_records``; CUDA-event times beside
+     ``kminmer_pipeline``, in turns; (b) phase 10's read sharded over 2 and
+     4 gloo ranks on the card (the stitched records equal phase 10's
+     ``kminmers_long``; walls, K1's time per shard, the two all-gathers'
+     seconds), and over 1, which K1's 2^28 length cap refuses; (c) [4,
+     2^24] ragged reads at regular u64 l=31 and hpc nthash2 l=201 over a
+     (2, 2) mesh, each equal to ``kminmers_batch``; (d)
+     ``run_file_distributed`` over 2 gloo ranks on phase 11's whole file
+     with the CLI defaults, equal to its ``StreamingRunner.collect()``.
+     K1 (its passes 1-2 too), K2 and K3 must have launched in every rank.
+     Then no child process of the script may be left running.
+
 Then summary lines of K1 against its one-block-per-read design, of K2
 and K3 against their designs before the redesign, and of K4 and the
 general path against theirs.  The second-to-last line
@@ -104,6 +124,7 @@ any of these functions, so ``library_ms`` is null); the last is
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -143,6 +164,7 @@ KERNELS = {  # name -> (source, the TPU kernel or XLA code it replaces)
 # Launch counters per kernel: K4 counts its masked form and its HPC form.
 COUNTERS = {name: (name,) for name in KERNELS}
 COUNTERS["masked_compact"] = ("masked_compact", "hpc_compact")
+COUNTERS["fused_scan"] = ("fused_scan", "tile_carries")  # K1, and its passes 1-2 alone
 N_LONG = 300_000_000  # the reference's own long-read size (LONGREAD_r05.json)
 # The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): HBM bytes a
 # second, and its 67 T/s non-tensor float32 rate taken for the integer
@@ -204,6 +226,23 @@ def k1_bound(codes, counts, l, width, carry):
     return bound(nbytes, 3 * B_ * L_ + 12 * int(counts[..., 2].sum()))
 
 
+def time_ms(fn, reps, warmup=2):
+    """CUDA-event ms a call of fn(i), over reps calls after warmup calls."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(reps):
+        fn(i)
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f"FAILED: {msg}")
@@ -213,12 +252,29 @@ def log(msg):
     print(msg, flush=True)
 
 
-def file_phase(dev, card, counters) -> dict:
-    """Phase 11: a seeded FASTA of ~0.5 Gbp (``scripts/prof_stream.py``)
-    through the streaming runner; -> the kernels' launches while it ran."""
+def live_children():
+    """{pid: command line} of this process's live child processes."""
+    import os
+
+    out = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            if int(fields[1]) == os.getpid() and fields[0] != "Z":
+                cmd = (stat.parent / "cmdline").read_bytes().replace(b"\0", b" ")
+                out[int(stat.parent.name)] = cmd.decode(errors="replace").strip()
+        except OSError:  # the process ended meanwhile
+            continue
+    return out
+
+
+def file_phase(dev, card, counters, tmp: Path):
+    """Phase 11: a seeded FASTA of ~0.5 Gbp (``scripts/prof_stream.py``),
+    written into ``tmp``, through the streaming runner; -> (the kernels'
+    launches while it ran, the file, the ordered stream of its CLI-defaults
+    run)."""
     import contextlib
     import io
-    import tempfile
 
     import numpy as np
     import torch
@@ -230,74 +286,74 @@ def file_phase(dev, card, counters) -> dict:
     from rust_seq2kminmers_torch.scripts import prof_stream as ps
 
     columns = ("hash", "start", "end", "offset", "rev", "read")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "reads.fa"
+    path = tmp / "reads.fa"
+    t0 = time.perf_counter()
+    reads = ps.make_reads()
+    total = ps.write_fasta(path, reads)
+    log(f"file path: {len(reads)} records, {total} bases, {path.stat().st_size} bytes of "
+        f"FASTA written in {time.perf_counter() - t0:.2f} s")
+
+    # The runs, counters at 0: per spec one first and two warm runs,
+    # then one warm run under the profiler.
+    build.launches.clear()
+    kept = {}
+    for what, spec in ps.SPECS.items():
+        for i in range(3):
+            stats, recs, _ = ps.run(path, spec, dev)
+            if i == 0:
+                kept[what] = (spec, stats, recs)
+            log(f"file path, {what}, {'first' if i == 0 else 'warm'} run on {card}: "
+                f"{ps.describe(stats)}")
+        log(f"file path, {what}, warm run under the profiler on {card}: "
+            + ps.describe_profile(ps.run(path, spec, dev, profiled=True)[2]))
+    torch.cuda.synchronize()
+    ran = {c: build.launches[c] for c in counters}
+    log(f"file path launches: {ran}")
+    for name in ("fused_scan", "slot_compact", "assemble"):
+        check(ran[name] > 0, f"the file path never launched {name}")
+
+    # The records: ordered, and each of 256 random reads and the 4
+    # contigs equal to kminmers_list on that read alone.
+    rng = np.random.default_rng(SEED + 3)
+    n_contig = int(reads.wrapped.sum())
+    held = np.concatenate([rng.choice(len(reads) - n_contig, 256, replace=False),
+                           np.arange(len(reads) - n_contig, len(reads))])
+    for what, (spec, stats, recs) in kept.items():
+        read = recs["read"]
+        check(stats.num_records == len(reads) and stats.total_bases == total
+              and stats.total_kminmers == len(read), f"{what}: stream counts")
+        check(bool((np.diff(read) >= 0).all()), f"{what}: read ids not ascending")
+        first = np.searchsorted(read, read, "left")
+        check(np.array_equal(recs["offset"], np.arange(len(read)) - first),
+              f"{what}: offsets are not 0..n-1 within each read")
+        for i in held:
+            lo, hi = np.searchsorted(read, [i, i + 1])
+            want = kminmers_list(reads.seq(i).tobytes(), spec.l, spec.k, spec.density,
+                                 spec.mode, device=dev)
+            got = [(int(recs["hash"][j]), int(recs["start"][j]), int(recs["end"][j]),
+                    int(recs["offset"][j]), bool(recs["rev"][j])) for j in range(lo, hi)]
+            check(got == [(r.hash, r.start, r.end, r.offset, r.rev) for r in want],
+                  f"{what}: read {i} differs from kminmers_list")
+        log(f"file path, {what}: {len(read)} k-min-mers, ordered by read then offset; "
+            f"{len(held)} reads (256 random, {n_contig} contigs) equal kminmers_list on the card")
+    file_recs = kept[next(iter(ps.SPECS))][2]  # the CLI defaults' stream, for phase 12
+    del kept
+
+    # A ~2 Mbp prefix of the file: the card's stream equals the CPU's.
+    count = min(len(reads), int(np.searchsorted(reads.starts, 2_000_000)))
+    prefix = tmp / "prefix.fa"
+    n_prefix = ps.write_fasta(prefix, reads, count)
+    for what, spec in ps.SPECS.items():
+        got = ps.run(prefix, spec, dev)[1]
         t0 = time.perf_counter()
-        reads = ps.make_reads()
-        total = ps.write_fasta(path, reads)
-        log(f"file path: {len(reads)} records, {total} bases, {path.stat().st_size} bytes of "
-            f"FASTA written in {time.perf_counter() - t0:.2f} s")
-
-        # The runs, counters at 0: per spec one first and two warm runs,
-        # then one warm run under the profiler.
-        build.launches.clear()
-        kept = {}
-        for what, spec in ps.SPECS.items():
-            for i in range(3):
-                stats, recs, _ = ps.run(path, spec, dev)
-                if i == 0:
-                    kept[what] = (spec, stats, recs)
-                log(f"file path, {what}, {'first' if i == 0 else 'warm'} run on {card}: "
-                    f"{ps.describe(stats)}")
-            log(f"file path, {what}, warm run under the profiler on {card}: "
-                + ps.describe_profile(ps.run(path, spec, dev, profiled=True)[2]))
-        torch.cuda.synchronize()
-        ran = {c: build.launches[c] for c in counters}
-        log(f"file path launches: {ran}")
-        for name in ("fused_scan", "slot_compact", "assemble"):
-            check(ran[name] > 0, f"the file path never launched {name}")
-
-        # The records: ordered, and each of 256 random reads and the 4
-        # contigs equal to kminmers_list on that read alone.
-        rng = np.random.default_rng(SEED + 3)
-        n_contig = int(reads.wrapped.sum())
-        held = np.concatenate([rng.choice(len(reads) - n_contig, 256, replace=False),
-                               np.arange(len(reads) - n_contig, len(reads))])
-        for what, (spec, stats, recs) in kept.items():
-            read = recs["read"]
-            check(stats.num_records == len(reads) and stats.total_bases == total
-                  and stats.total_kminmers == len(read), f"{what}: stream counts")
-            check(bool((np.diff(read) >= 0).all()), f"{what}: read ids not ascending")
-            first = np.searchsorted(read, read, "left")
-            check(np.array_equal(recs["offset"], np.arange(len(read)) - first),
-                  f"{what}: offsets are not 0..n-1 within each read")
-            for i in held:
-                lo, hi = np.searchsorted(read, [i, i + 1])
-                want = kminmers_list(reads.seq(i).tobytes(), spec.l, spec.k, spec.density,
-                                     spec.mode, device=dev)
-                got = [(int(recs["hash"][j]), int(recs["start"][j]), int(recs["end"][j]),
-                        int(recs["offset"][j]), bool(recs["rev"][j])) for j in range(lo, hi)]
-                check(got == [(r.hash, r.start, r.end, r.offset, r.rev) for r in want],
-                      f"{what}: read {i} differs from kminmers_list")
-            log(f"file path, {what}: {len(read)} k-min-mers, ordered by read then offset; "
-                f"{len(held)} reads (256 random, {n_contig} contigs) equal kminmers_list on the card")
-        del kept
-
-        # A ~2 Mbp prefix of the file: the card's stream equals the CPU's.
-        count = min(len(reads), int(np.searchsorted(reads.starts, 2_000_000)))
-        prefix = Path(tmp) / "prefix.fa"
-        n_prefix = ps.write_fasta(prefix, reads, count)
-        for what, spec in ps.SPECS.items():
-            got = ps.run(prefix, spec, dev)[1]
-            t0 = time.perf_counter()
-            want = ps.run(prefix, spec, "cpu")[1]
-            cpu_s = time.perf_counter() - t0
-            for c in columns:
-                check(got[c].dtype == want[c].dtype and np.array_equal(got[c], want[c]),
-                      f"{what}: prefix column {c} differs from the CPU run")
-            log(f"file path, {what}: the {count}-record, {n_prefix}-base prefix gives the same "
-                f"{len(got['hash'])} records in all six columns on the card and on the CPU "
-                f"(CPU run {cpu_s:.2f} s)")
+        want = ps.run(prefix, spec, "cpu")[1]
+        cpu_s = time.perf_counter() - t0
+        for c in columns:
+            check(got[c].dtype == want[c].dtype and np.array_equal(got[c], want[c]),
+                  f"{what}: prefix column {c} differs from the CPU run")
+        log(f"file path, {what}: the {count}-record, {n_prefix}-base prefix gives the same "
+            f"{len(got['hash'])} records in all six columns on the card and on the CPU "
+            f"(CPU run {cpu_s:.2f} s)")
 
     # The CLI on the fixture, the demo and kminmers_vec.
     proc = subprocess.run(
@@ -322,7 +378,360 @@ def file_phase(dev, card, counters) -> dict:
     check(vecs[str(dev)] == vecs["cpu"] and len(vecs["cpu"]) == 1942,
           "kminmers_vec on the card differs from the CPU")
     log(f"kminmers_vec on the fixture: {len(vecs['cpu'])} records, equal on the card and the CPU")
-    return ran
+    return ran, path, file_recs
+
+# Phase 12: the multi-process layer.  The rank functions run in processes
+# that run_world spawns; each imports this file as its main module.
+PHASE12_COUNTERS = ("tile_carries", "fused_scan", "slot_compact", "assemble")
+FILE_ROWS_PER_RANK = 128
+
+
+def main_spec():
+    from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
+
+    return PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd",
+                        max_minimizers=int(L * 0.02) + 256)
+
+
+def long_read_codes():
+    """Phase 10's read: N_LONG random bases from SEED + 2, as xcodes."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    seq = rng.integers(0, 4, N_LONG, dtype=np.uint8)
+    keep_bit = np.empty(N_LONG, dtype=bool)
+    keep_bit[0] = True
+    np.not_equal(seq[1:], seq[:-1], out=keep_bit[1:])
+    seq |= keep_bit.view(np.uint8) << 3
+    return seq
+
+
+def ragged_batch(seed, rows, length):
+    """Random ACGT rows of at least half ``length`` bases, padded."""
+    import numpy as np
+
+    from rust_seq2kminmers_torch.constants import XCODE_PAD, with_keep_bits
+
+    rng = np.random.default_rng(seed)
+    codes = with_keep_bits(rng.integers(0, 4, (rows, length), dtype=np.uint8))
+    lengths = (length - rng.integers(0, length // 2, rows)).astype(np.int32)
+    for b in range(rows):
+        codes[b, lengths[b]:] = XCODE_PAD
+    return codes, lengths
+
+
+def rank_launches():
+    import torch
+
+    from rust_seq2kminmers_torch.ops.cuda import build
+
+    torch.cuda.synchronize()
+    return {c: build.launches[c] for c in PHASE12_COUNTERS}
+
+
+def dp_rank(device):
+    """(a) The data-parallel step at [B, L] with the main spec, in this
+    rank's world of one: its 12 fields against kminmers_batch, merge_ordered
+    against stitch_records, and CUDA-event times of the step and of
+    kminmer_pipeline, in turns.  -> (launches, times, k-min-mers)."""
+    import numpy as np
+    import torch
+
+    from rust_seq2kminmers_torch.api import kminmers_batch
+    from rust_seq2kminmers_torch.constants import with_keep_bits
+    from rust_seq2kminmers_torch.ops.cuda import build
+    from rust_seq2kminmers_torch.ops.pipeline import kminmer_pipeline
+    from rust_seq2kminmers_torch.parallel.driver import (
+        make_dp_pipeline,
+        merge_ordered,
+        stitch_records,
+    )
+    from rust_seq2kminmers_torch.parallel.mesh import make_mesh
+
+    spec = main_spec()
+    rng = np.random.default_rng(SEED)  # phase 3's two batches
+    pool = [torch.from_numpy(with_keep_bits(rng.integers(0, 4, (B, L), dtype=np.uint8)))
+            .to(device) for _ in range(2)]
+    lengths = torch.full((B,), L, dtype=torch.int32, device=device)
+    mesh = make_mesh()
+    step = make_dp_pipeline(spec, mesh, device)
+    build.launches.clear()
+    res = step(pool[0], lengths)
+    ran = rank_launches()
+    want = kminmers_batch(pool[0], lengths, spec)
+    for name, got, w in zip(want._fields, res.batch, want):
+        check(got.shape == w.shape and got.dtype == w.dtype and torch.equal(got, w),
+              f"DP step field {name} differs from kminmers_batch")
+    nk = want.n_kminmers.cpu().numpy().astype(np.int64)
+    excl = np.cumsum(nk) - nk
+    check(int(res.lost) == 0 and int(res.total) == nk.sum()
+          and np.array_equal(res.global_offset.cpu().numpy(), excl), "DP offsets")
+    mk = int(nk.max())
+    words = [t[:, :mk].cpu().numpy().view(np.uint32).astype(np.uint64)
+             for t in (want.hash_hi, want.hash_lo)]
+    ref = stitch_records(nk, excl, int(nk.sum()), (words[0] << np.uint64(32)) | words[1],
+                         *(t[:, :mk].cpu().numpy() for t in (want.start, want.end, want.rev)))
+    merged = merge_ordered(res, mesh)
+    for key in ref:
+        check(merged[key].dtype == ref[key].dtype and np.array_equal(merged[key], ref[key]),
+              f"merge_ordered column {key} differs from stitch_records")
+    times = [time_ms(lambda i, f=f: f(pool[i % 2], lengths), 20)
+             for f in (lambda c, n: kminmer_pipeline(c, n, spec), step, step,
+                       lambda c, n: kminmer_pipeline(c, n, spec))]
+    return ran, times, int(nk.sum())
+
+
+def _timed_step(step, x, n):
+    """One step with K1's launches timed by CUDA events and the
+    collectives by the host clock (the device synchronised first) -> (K1
+    ms, [seconds of each all-gather])."""
+    import time as _time
+
+    import torch
+
+    from rust_seq2kminmers_torch.parallel import seqshard
+
+    events, gathers = [], []
+    real = {name: getattr(seqshard, name)
+            for name in ("tile_carries", "fused_minimizer_scan", "all_gather")}
+
+    def timed_kernel(fn):
+        def run(*args, **kwargs):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            events.append((e0, e1))
+            return out
+        return run
+
+    def timed_gather(t, group):
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        out = real["all_gather"](t, group)
+        gathers.append(_time.perf_counter() - t0)
+        return out
+
+    seqshard.tile_carries = timed_kernel(real["tile_carries"])
+    seqshard.fused_minimizer_scan = timed_kernel(real["fused_minimizer_scan"])
+    seqshard.all_gather = timed_gather
+    try:
+        step(x, n)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(seqshard, name, fn)
+    return sum(e0.elapsed_time(e1) for e0, e1 in events), gathers
+
+
+def parallel_rank(device, jobs):
+    """Each job in turn, on every rank of the world -> {name: result}.
+
+    ("seq", name, spec keywords, (n_data, n_seq), source, runs): the
+    sequence-sharded step on this rank's block of the source (("long",
+    .npy of phase 10's read), or ("ragged", seed, rows, length)), timed over
+    ``runs`` walls and one instrumented run when runs > 1 -> this rank's
+    segment as numpy, its launches in the first run, walls, K1 ms, gather
+    seconds; None outside the mesh; the message if the step raised
+    ValueError.
+    ("file", name, path, rows per rank): run_file_distributed with the CLI
+    defaults -> (this rank's chunks, launches, wall)."""
+    import time as _time
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rust_seq2kminmers_torch.constants import XCODE_PAD
+    from rust_seq2kminmers_torch.ops.cuda import build
+    from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
+    from rust_seq2kminmers_torch.parallel import seqshard
+    from rust_seq2kminmers_torch.parallel.mesh import batch_sharding, make_mesh
+    from rust_seq2kminmers_torch.parallel.multihost import global_data_mesh, run_file_distributed
+
+    out = {}
+    for job in jobs:
+        kind, name = job[:2]
+        if kind == "file":
+            path, rows = job[2:]
+            dist.barrier()
+            build.launches.clear()
+            t0 = _time.perf_counter()
+            chunks = run_file_distributed(path, PipelineSpec(l=31, k=5, density=0.01),
+                                          global_data_mesh(device), rows, device=device)
+            out[name] = (chunks, rank_launches(), _time.perf_counter() - t0)
+            continue
+        kw, shape, source, runs = job[2:]
+        mesh = make_mesh(*shape)
+        if mesh.get_coordinate() is None:
+            out[name] = None
+            continue
+        if source[0] == "long":
+            read = np.load(source[1], mmap_mode="r")
+            S = shape[1]
+            Lp = -(-len(read) // (S * 1024)) * (S * 1024)
+            rows, cols = batch_sharding(mesh, 1, Lp, seq_sharded=True)
+            local = np.full((1, cols.stop - cols.start), XCODE_PAD, dtype=np.uint8)
+            part = read[cols.start : min(cols.stop, len(read))]
+            local[0, : len(part)] = part
+            lengths = np.array([len(read)], dtype=np.int32)
+        else:
+            codes, lengths = ragged_batch(*source[1:])
+            rows, cols = batch_sharding(mesh, *codes.shape, seq_sharded=True)
+            local, lengths = codes[rows, cols], lengths[rows]
+        x = torch.from_numpy(np.ascontiguousarray(local)).to(device)
+        n = torch.from_numpy(lengths).to(device)
+        try:
+            step = seqshard.make_seq_pipeline(PipelineSpec(**kw), mesh, device)
+            group = mesh.get_group("seq")
+            walls, ran = [], None
+            build.launches.clear()
+            for i in range(runs):
+                dist.barrier(group=group)
+                torch.cuda.synchronize()
+                t0 = _time.perf_counter()
+                seg = step(x, n)
+                torch.cuda.synchronize()
+                walls.append(_time.perf_counter() - t0)
+                ran = ran or rank_launches()
+        except ValueError as e:
+            out[name] = str(e)
+            continue
+        k1_ms, gathers = _timed_step(step, x, n) if runs > 1 else (None, None)
+        out[name] = dict(seg=type(seg)(*(t.cpu().numpy() for t in seg)), ran=ran, walls=walls,
+                         k1_ms=k1_ms, gathers=gathers)
+        del seg, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(dev, card, long_recs, long_path, file_path, file_recs) -> dict:
+    """Phase 12, the multi-process layer on the one card -> the kernels'
+    launches in the ranks.  (a) the data-parallel step, an NCCL world of
+    one; (b) phase 10's read sharded over 2 and 4 gloo ranks (and over 1,
+    which K1's length cap refuses); (c) [4, 2^24] over a (2, 2) mesh at two
+    more specs; (d) the distributed file runner over 2 gloo ranks on phase
+    11's file."""
+    import numpy as np
+    import torch
+
+    from rust_seq2kminmers_torch.api import kminmers_batch
+    from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
+    from rust_seq2kminmers_torch.parallel.launch import run_world
+    from rust_seq2kminmers_torch.parallel.seqshard import join_segments, stitch_segments
+
+    launches = {c: 0 for c in PHASE12_COUNTERS}
+
+    def count(ran, what):
+        log(f"phase 12 {what} launches: {ran}")
+        for c in ("fused_scan", "slot_compact", "assemble"):
+            check(ran[c] > 0, f"phase 12 {what} never launched {c}")
+        for c in ran:
+            launches[c] += ran[c]
+
+    # (a)
+    t0 = time.perf_counter()
+    (ran, times, n_km), = run_world(dp_rank, 1, "nccl", dev)
+    count(ran, "(a) DP step")
+    log(f"phase 12 (a) DP step [{B}, {L}] hpcsimd, NCCL world of 1 on {card}: all 12 fields "
+        f"equal kminmers_batch, merge_ordered equals stitch_records ({n_km} k-min-mers); "
+        f"CUDA events, in turns: kminmer_pipeline {times[0]:.4f} ms, DP step {times[1]:.4f} "
+        f"ms, DP step {times[2]:.4f} ms, kminmer_pipeline {times[3]:.4f} ms "
+        f"(world {time.perf_counter() - t0:.2f} s)")
+
+    # (b), (c), (d): phase 10's read over S = 1, 2 in a world of 2 and over
+    # S = 4 in a world of 4; the (2, 2) mesh and the file in those worlds.
+    lr = dict(l=31, k=5, density=0.01, mode="hpcsimd")
+    ragged = {"regular u64 l=31": dict(l=31, k=5, density=0.01, mode="regular", hash_width=64),
+              "hpc nthash2 l=201": dict(l=201, k=5, density=0.01, mode="hpc",
+                                        variant="nthash2")}
+    worlds = {
+        2: [("seq", "S=1", lr, (1, 1), ("long", long_path), 1),
+            ("seq", "S=2", lr, (1, 2), ("long", long_path), 3),
+            ("file", "file", file_path, FILE_ROWS_PER_RANK)],
+        4: [("seq", "S=4", lr, (1, 4), ("long", long_path), 3)]
+        + [("seq", what, kw, (2, 2), ("ragged", SEED + 4 + i, 4, 1 << 24), 1)
+           for i, (what, kw) in enumerate(ragged.items())],
+    }
+    results = {}
+    for world, jobs in worlds.items():
+        t0 = time.perf_counter()
+        ranks = run_world(parallel_rank, world, "gloo", dev, jobs)
+        log(f"phase 12 world of {world} gloo ranks on the card: {time.perf_counter() - t0:.2f} s")
+        for job in jobs:
+            results[job[1]] = [r[job[1]] for r in ranks]
+
+    def stitched(name, S):
+        pieces = [r for r in results[name] if r is not None]
+        for r in pieces:
+            count(r["ran"], f"{name} rank")
+        return stitch_segments(join_segments([r["seg"] for r in pieces], S))
+
+    s1 = results["S=1"][0]
+    check(isinstance(s1, str) and "2^28" in s1, f"S=1 was not refused: {s1!r}")
+    log(f"phase 12 (b) S=1: refused, as it must be: {s1}")
+    for S in (2, 4):
+        name = f"S={S}"
+        st = stitched(name, S)
+        nk = int(st.n_kminmers[0])
+        hi, lo = (a[0, :nk].astype(np.uint64) for a in (st.hash_hi, st.hash_lo))
+        got = {"hash": (hi << np.uint64(32)) | lo, "start": st.start[0, :nk].astype(np.int64),
+               "end": st.end[0, :nk].astype(np.int64), "offset": np.arange(nk, dtype=np.int64),
+               "rev": st.rev[0, :nk]}
+        for key in long_recs:
+            check(got[key].dtype == long_recs[key].dtype
+                  and np.array_equal(got[key], long_recs[key]),
+                  f"(b) {name}: field {key} differs from kminmers_long")
+        ranks = results[name]
+        walls = np.array([r["walls"] for r in ranks]).max(axis=0)
+        log(f"phase 12 (b) {N_LONG}-base read hpcsimd l=31 over {name} gloo ranks on one card "
+            f"({card}): the {nk} stitched records equal kminmers_long's on the card; walls "
+            f"(the slowest rank's; first, warm, warm) "
+            + ", ".join(f"{w:.4f}" for w in walls) + " s; K1 per shard (passes 1-2, then 1-3 "
+            "from the carry; CUDA events, ranks sharing the card) "
+            + ", ".join(f"{r['k1_ms']:.4f}" for r in ranks) + " ms; the two all-gathers per "
+            "shard (host clock) " + "; ".join(
+                ", ".join(f"{g:.6f}" for g in r["gathers"]) for r in ranks) + " s")
+    for what, kw in ragged.items():
+        st = stitched(what, 2)
+        i = list(ragged).index(what)
+        codes, lengths = ragged_batch(SEED + 4 + i, 4, 1 << 24)
+        want = kminmers_batch(torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev),
+                              PipelineSpec(**kw))
+        for field in ("n_kminmers", "n_minimizers", "n_minimizers_raw"):
+            check(np.array_equal(getattr(st, field), getattr(want, field).cpu().numpy()),
+                  f"(c) {what}: {field}")
+        for field in st._fields:
+            w = getattr(want, field).cpu().numpy()
+            if w.ndim == 1:
+                continue
+            g = getattr(st, field)
+            w = w.view(np.uint32) if g.dtype == np.uint32 else w
+            counts = st.n_kminmers if field in ("hash_hi", "hash_lo", "start", "end",
+                                                "rev") else st.n_minimizers
+            for b, n in enumerate(counts):
+                check(np.array_equal(g[b, :n], w[b, :n]), f"(c) {what}: {field} row {b}")
+        log(f"phase 12 (c) [4, 2^24] {what} over a (2, 2) mesh of gloo ranks: the stitched "
+            f"batch equals kminmers_batch on the card ({int(st.n_kminmers.sum())} k-min-mers)")
+    # (d)
+    ranks = results["file"]
+    for _, ran, _ in ranks:
+        count(ran, "(d) file rank")
+    chunks = sorted(((c.batch_index, r, c) for r, (cs, _, _) in enumerate(ranks) for c in cs),
+                    key=lambda x: x[:2])
+    pos = 0
+    for _, _, c in chunks:
+        check(c.stream_start == pos, "(d) chunk stream offsets")
+        pos += len(c.records["hash"])
+    for key in file_recs:
+        got = np.concatenate([c.records[key] for _, _, c in chunks])
+        check(got.dtype == file_recs[key].dtype and np.array_equal(got, file_recs[key]),
+              f"(d) column {key} differs from StreamingRunner.collect()")
+    log(f"phase 12 (d) run_file_distributed, CLI defaults, 2 gloo ranks x {FILE_ROWS_PER_RANK} "
+        f"rows on one card: the whole phase-11 file, {pos} records in {len(chunks)} chunks, "
+        f"equal to StreamingRunner.collect() in all six columns; walls "
+        + ", ".join(f"{w:.4f}" for _, _, w in ranks) + " s")
+    return launches
 
 
 def main():
@@ -646,19 +1055,6 @@ def main():
             "all 12 fields equal the CPU run")
 
     # 6. timing (CUDA events, after warm-up)
-    def time_ms(fn, reps, warmup=2):
-        for i in range(warmup):
-            fn(i)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for i in range(reps):
-            fn(i)
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     def gbps(ms):
         return B * L / (ms * 1e-3) / 1e9
 
@@ -1026,13 +1422,7 @@ def main():
         bounds[name] = bound(cells * 4 * (1 + 4 + 4), 4 * cells)
 
     # 10. the long-read path, counters at 0 just before
-    rng = np.random.default_rng(SEED + 2)
-    seq = rng.integers(0, 4, N_LONG, dtype=np.uint8)
-    keep_bit = np.empty(N_LONG, dtype=bool)
-    keep_bit[0] = True
-    np.not_equal(seq[1:], seq[:-1], out=keep_bit[1:])
-    seq |= keep_bit.view(np.uint8) << 3
-    del keep_bit
+    seq = long_read_codes()
     lr = dict(l=31, k=5, density=0.01, mode="hpcsimd")
     build.launches.clear()
     t0 = time.perf_counter()
@@ -1157,11 +1547,28 @@ def main():
     want3 = assemble_plain(mh_d, lspec.k)
     record("assemble", f"long read: [1, {mh.shape[0]}] minimizer hashes",
            max_abs_err([*got3[0], got3[1]], [*want3[0], want3[1]]))
-    del got, got2, want2, got3, want3, mh_d, seq, recs, prefix, halves, batch
+    # Phases 11 and 12 keep their files here; phase 12 maps the long read.
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    long_path = tmp / "long.npy"
+    np.save(long_path, seq)
+    del got, got2, want2, got3, want3, mh_d, seq, prefix, halves, batch
+    torch.cuda.empty_cache()
 
     # 11. the file path, counters at 0 just before
-    for name, n in file_phase(dev, card, counters).items():
+    ran, file_path, file_recs = file_phase(dev, card, counters, tmp)
+    for name, n in ran.items():
         launches[name] += n
+
+    # 12. the multi-process layer, counters at 0 in every rank before its run
+    torch.cuda.empty_cache()
+    for name, n in parallel_phase(dev, card, recs, long_path, file_path, file_recs).items():
+        launches[name] += n
+    del recs, file_recs
+    tmp_dir.cleanup()
+    left = live_children()
+    check(not left, f"processes left running after phase 12: {left}")
+    log("no child process is left running")
 
     log("K1 against its one-block-per-read design, on " + card + ": " + "; ".join(
         f"{what} {t:.4f} ms (one block per read {K1_ONE_BLOCK_MS[what]}, bound "

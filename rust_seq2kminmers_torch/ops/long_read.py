@@ -51,7 +51,7 @@ MAX_READ = (1 << 31) - 1  # positions are int32 on the device
 # The largest window-start rank in the hpc modes, where the kept stream
 # itself ends each read.  (The reference uses 2^30, which drops windows
 # of reads that keep more than 2^30 bases.)
-_HPC_LIMIT = (1 << 31) - 1
+HPC_LIMIT = (1 << 31) - 1
 _STAGES = 3  # pinned staging buffers in flight
 
 
@@ -166,7 +166,7 @@ def minimizer_stream_long_batch(
         return [empty] * B
     chunk = -(-max(int(chunk), 1024) // 1024) * 1024
     nchunks = -(-n_max // chunk)
-    limit_h = np.where(lengths > l, _HPC_LIMIT if spec.is_hpc else lengths - l, -1)
+    limit_h = np.where(lengths > l, HPC_LIMIT if spec.is_hpc else lengths - l, -1)
     local = np.clip(lengths[None, :] - chunk * np.arange(nchunks)[:, None], 0, chunk)
     local_d = torch.from_numpy(local.astype(np.int32)).to(device)  # [nchunks, B]
     limit = torch.from_numpy(limit_h.astype(np.int32)).to(device)

@@ -1,1 +1,2 @@
-"""Host-side assembly of ordered k-min-mer streams from padded batches."""
+"""The multi-process layer: the rank mesh, the data-parallel step, the
+sequence-sharded step, the distributed file runner and a launcher."""

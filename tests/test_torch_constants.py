@@ -137,8 +137,8 @@ def test_spec_from_jax_rejects_unported_widths():
 def test_port_imports_without_jax():
     """With jax made unimportable, the port imports and runs its CPU
     pipeline, long-read path, file reader, streaming runner and command
-    line, imports its profiling script, and never loads the reference
-    package."""
+    line, imports its profiling script and its multi-process layer, and
+    never loads the reference package."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -147,9 +147,10 @@ import rust_seq2kminmers_torch as p
 from rust_seq2kminmers_torch import convert
 from rust_seq2kminmers_torch.ops.cuda import build, fused_scan, slot_compact, assemble_kernel, masked_compact, inrow_compact
 from rust_seq2kminmers_torch.ops import long_read
-from rust_seq2kminmers_torch.scripts import prof_long_read, prof_mxu_compact
+from rust_seq2kminmers_torch.scripts import prof_long_read, prof_mxu_compact, prof_parallel
 from rust_seq2kminmers_torch import hpc_strings, kminmer, __main__ as cli
 from rust_seq2kminmers_torch.io import fasta, stream
+from rust_seq2kminmers_torch.parallel import driver, launch, mesh, multihost, seqshard
 codes = p.constants.with_keep_bits(np.random.default_rng(0).integers(0, 4, (2, 4096)))
 for spec in (p.PipelineSpec(l=31, k=5, density=0.05, mode="hpcsimd"),
              p.PipelineSpec(l=301, k=5, density=0.05, mode="hpc", hash_width=64)):
