@@ -19,11 +19,12 @@ then the long-read path (one 300 Mbp random-ACGT read through
 ``kminmers_long``: K1 with its carry chunk by chunk -> K2 -> K3), the
 profiling script (``rust_seq2kminmers_torch/scripts/prof_mxu_compact.py``:
 K5 and K6), the file path (a FASTA through the reader and the
-streaming runner, batches of the fused route; and the command line), and
+streaming runner, batches of the fused route; and the command line),
 the multi-process layer (``rust_seq2kminmers_torch/parallel``: the
 data-parallel step, the sequence-sharded step, whose shards run K1's
 passes 1-2, K1 from the carry, K2 and K3, and the distributed file runner,
-in worlds of spawned ranks on the one card).
+in worlds of spawned ranks on the one card), and last the burn-in against
+the numpy oracle and the per-stage benchmark suite.
 
 In order, and any failure raises (exit code != 0):
 
@@ -111,10 +112,23 @@ In order, and any failure raises (exit code != 0):
      with the CLI defaults, equal to its ``StreamingRunner.collect()``.
      K1 (its passes 1-2 too), K2 and K3 must have launched in every rank.
      Then no child process of the script may be left running.
+ 13. runs the burn-in (``rust_seq2kminmers_torch/scripts/burnin.py``) at a
+     fixed seed with the counters at zero: 24 fused-route configurations
+     and 6 on the general route, 6 sequences each of up to 6 kb in five
+     alphabets, each sequence's records through ``kminmers_list`` on the
+     card equal to ``backend="oracle"``; K1, K2 and K3 must have launched
+     for the fused-route sequences, the general scan for the general-route
+     ones and K4's HPC form for those in an hpc mode.
+ 14. runs the per-stage suite (``rust_seq2kminmers_torch/bench_suite.py``):
+     its 6 host rows, and its 9 device rows at [32, 2^20] with 16 steps a
+     unit, the counters at zero; the 8 pipeline cases must have launched
+     K1, K2 and K3 at every step; each pipeline case's checksum of one step
+     equals ``kminmer_pipeline_plain``'s on the card, and the dense hash
+     stage's first 2^16 columns of row 0 equal the CPU's.
 
 Then summary lines of K1 against its one-block-per-read design, of K2
 and K3 against their designs before the redesign, and of K4 and the
-general path against theirs.  The second-to-last line
+general path against theirs, and the script's wall time.  The second-to-last line
 is a JSON object with one entry per kernel (its launches on the paths,
 error, time, plain time, bound and what binds it; no PyTorch call computes
 any of these functions, so ``library_ms`` is null); the last is
@@ -734,7 +748,90 @@ def parallel_phase(dev, card, long_recs, long_path, file_path, file_recs) -> dic
     return launches
 
 
+# Phase 13's draw: fixed, so that every run checks the same sequences.
+BURNIN_SEED = 20261017
+BURNIN_CONFIGS, BURNIN_SEQS, BURNIN_GENERAL = 24, 6, 6
+SUITE_SIZE, SUITE_STEPS = 32 << 20, 16  # the suite's default size: [32, 2^20]
+
+
+def burnin_phase(dev) -> dict:
+    """Phase 13, the burn-in on the card with the counters at 0 just
+    before -> its launches.  Every sequence's records equal the oracle's;
+    K1 and K2 launched for each fused-route sequence, the general scan for
+    each general-route one and K4's HPC form for each of those in an hpc
+    mode, K3 for every one."""
+    import torch
+
+    from rust_seq2kminmers_torch.ops.cuda import build
+    from rust_seq2kminmers_torch.scripts import burnin
+
+    build.launches.clear()
+    counts = burnin.run(BURNIN_CONFIGS, BURNIN_SEQS, BURNIN_SEED, None, dev,
+                        BURNIN_GENERAL, log=log)
+    torch.cuda.synchronize()
+    ran = dict(build.launches)
+    log(f"phase 13 launches: {ran}; counts: {counts}")
+    check(counts["sequences"] == (BURNIN_CONFIGS + BURNIN_GENERAL) * BURNIN_SEQS,
+          "burn-in sequences")
+    check(counts["general"] == BURNIN_GENERAL * BURNIN_SEQS and counts["general_hpc"] > 0,
+          "burn-in general-route sequences")
+    for name, need in (("fused_scan", counts["fused"]), ("slot_compact", counts["fused"]),
+                       ("assemble", counts["sequences"]), ("general_scan", counts["general"]),
+                       ("hpc_compact", counts["general_hpc"])):
+        check(ran.get(name, 0) >= need, f"the burn-in launched {name} {ran.get(name, 0)} "
+              f"times for {need} sequences")
+    return ran
+
+
+def suite_phase(dev) -> dict:
+    """Phase 14, the per-stage suite on the card with the counters at 0
+    just before its device cases -> their launches.  Then, apart from the
+    counts: each pipeline case's checksum of one step on pool[0] equals
+    ``kminmer_pipeline_plain``'s on the card, and the dense hash's first
+    2^16 columns of row 0 equal the CPU's."""
+    import torch
+
+    from rust_seq2kminmers_torch import bench_suite as bs
+    from rust_seq2kminmers_torch.ops.cuda import build
+    from rust_seq2kminmers_torch.ops.pipeline import kminmer_pipeline, kminmer_pipeline_plain
+
+    t0 = time.perf_counter()
+    host = list(bs.host_cases(10_000))
+    build.launches.clear()
+    rows = list(bs.device_cases(SUITE_SIZE, SUITE_STEPS, dev))
+    torch.cuda.synchronize()
+    ran = dict(build.launches)
+    for r in host + rows:
+        log(json.dumps(r))
+    B, L = bs.batch_shape(SUITE_SIZE)
+    cases = bs.pipeline_cases(L)
+    check([r["case"] for r in rows] == ["nthash32_dense_l31"] + [c for c, _ in cases]
+          and len(host) == 6, "the suite's rows")
+    check(all(r["backend"] == torch.cuda.get_device_name(0) and r["power_limit"]
+              for r in rows), "the suite's rows name the card and its power limit")
+    launched = len(cases) * (1 + bs.UNITS) * SUITE_STEPS
+    log(f"phase 14 launches: {ran}")
+    for name in ("fused_scan", "slot_compact", "assemble"):
+        check(ran.get(name, 0) == launched,
+              f"the suite launched {name} {ran.get(name, 0)} times, not {launched}")
+    pool = bs.make_pool(B, L, dev)
+    lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    for case, spec in cases:
+        got = int(bs.checksum(kminmer_pipeline(pool[0], lengths, spec)))
+        want = int(bs.checksum(kminmer_pipeline_plain(pool[0], lengths, spec)))
+        check(got == want, f"{case}: checksum {got} on the kernels, {want} plain")
+    n = 1 << 16
+    got = bs.dense_hash(pool[0])[0, :n].cpu()
+    check(torch.equal(got, bs.dense_hash(pool[0][:1, : n + 30].cpu())[0]),
+          "nthash32_dense_l31 on the card against the CPU")
+    log(f"phase 14: {len(host)} host and {len(rows)} device rows; {len(cases)} pipeline "
+        f"checksums equal kminmer_pipeline_plain's on the card, the dense hash equals the "
+        f"CPU's on [1, 2^16]; {time.perf_counter() - t0:.2f} s")
+    return ran
+
+
 def main():
+    t_script = time.perf_counter()
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
@@ -1570,6 +1667,18 @@ def main():
     check(not left, f"processes left running after phase 12: {left}")
     log("no child process is left running")
 
+    # 13. the burn-in against the oracle, counters at 0 just before
+    t0 = time.perf_counter()
+    for name, n in burnin_phase(dev).items():
+        if name in launches:
+            launches[name] += n
+    log(f"phase 13: {time.perf_counter() - t0:.2f} s")
+
+    # 14. the per-stage suite, counters at 0 just before its device cases
+    for name, n in suite_phase(dev).items():
+        if name in launches:
+            launches[name] += n
+
     log("K1 against its one-block-per-read design, on " + card + ": " + "; ".join(
         f"{what} {t:.4f} ms (one block per read {K1_ONE_BLOCK_MS[what]}, bound "
         f"{bnd[0]:.4f} by {bnd[1]})"
@@ -1580,6 +1689,7 @@ def main():
     log("K4 and the general path against their designs before, on " + card + ": "
         + "; ".join(f"{what} {k4_seen[what]:.4f} ms (before: {t})"
                     for what, t in K4_GENERAL_BEFORE_MS.items()))
+    log(f"chip_smoke.py wall: {time.perf_counter() - t_script:.2f} s")
     print(json.dumps({"kernels": [
         {
             "name": name,

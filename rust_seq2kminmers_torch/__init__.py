@@ -8,7 +8,7 @@ neither jax nor the reference package.  CUDA tensors run the kernels in
 ``io.stream.stream_file`` or ``python -m rust_seq2kminmers_torch``.
 """
 
-from .api import HashMode, KminmerRecord, KminmersIterator, KSizeTooBig, kminmers_list
+from .api import KminmersIterator, KSizeTooBig, kminmers_list
 from .constants import encode_bases, hash_bound_simd_u32, hash_bound_u32
 from .hpc_strings import encode_rle, encode_rle_simd, hpc
 from .kminmer import (
@@ -17,8 +17,8 @@ from .kminmer import (
     fxhash64_of_mers,
     kminmer_hash_from_mers,
     kminmers_vec,
-    nthash1_minimizer_space,
 )
+from .oracle import HashMode, KminmerRecord, nthash1_minimizer_space
 from .ops.long_read import kminmers_long, kminmers_long_batch
 from .ops.pipeline import KminmerBatch, PipelineSpec, kminmer_pipeline
 

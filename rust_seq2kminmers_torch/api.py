@@ -2,23 +2,24 @@
 
 ``KminmersIterator(seq, l, k, density, mode)`` and ``kminmers_list``
 mirror the reference package's surface (``hash_width``, ``variant``,
-``strict_limits``); a single read is padded to a power-of-two length and
-run through the batched pipeline on ``device``.  ``kminmers_batch`` adds
-the overflow rescue to ``kminmer_pipeline``.  The reference's
-``backend="oracle"`` has no counterpart: its oracle lives in the
-reference package, which imports jax.
+``strict_limits``, ``backend``); with ``backend="torch"`` (the default) a
+single read is padded to a power-of-two length and run through the
+batched pipeline on ``device``, and with ``backend="oracle"`` through the
+numpy oracle (``oracle.py``, the semantic specification) on the host.
+``kminmers_batch`` adds the overflow rescue to ``kminmer_pipeline``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import enum
 from typing import Iterator, List
 
 import numpy as np
 import torch
 
 from .constants import MODES, XCODE_PAD, encode_xcodes, family_of_mode
+from .oracle import HashMode, KminmerRecord
+from .oracle import kminmers as oracle_kminmers
 from .ops.pipeline import PipelineSpec, kminmer_pipeline
 from .ops.u64 import to_py_u64
 
@@ -27,38 +28,11 @@ from .ops.u64 import to_py_u64
 # takes l < 256.  Both hold only for nthash1 under strict_limits.
 MAX_L_SIMD = 31
 MAX_L_HPC = 255
+BACKENDS = ("torch", "oracle")
 
 
 class KSizeTooBig(ValueError):
     """l is past the reference's limit for the mode."""
-
-
-class HashMode(enum.Enum):
-    """The reference's HashMode enum (src/lib.rs:22-27); every entry point
-    takes it or its value."""
-
-    Regular = "regular"
-    Hpc = "hpc"
-    Simd = "simd"
-    HpcSimd = "hpcsimd"
-
-
-@dataclasses.dataclass
-class KminmerRecord:
-    """One k-min-mer.  Equality compares the hash only, as the
-    reference's does; positions are payload."""
-
-    hash: int
-    start: int
-    end: int
-    offset: int
-    rev: bool
-
-    def __eq__(self, other):
-        return self.hash == other.hash
-
-    def get_hash(self) -> int:
-        return self.hash
 
 
 def _mode_name(mode) -> str:
@@ -150,20 +124,27 @@ def run_single(seq, spec: PipelineSpec, device: torch.device):
 def kminmers_list(
     seq, l: int, k: int, density: float, mode="regular", device="cuda",
     strict_limits: bool = True, hash_width: int = 32, variant: str = "nthash1",
+    *, backend: str = "torch",
 ) -> List[KminmerRecord]:
     """All k-min-mers of one sequence, in order.  ``seq`` is str, bytes or
-    a pre-encoded integer array of xcodes.  ``device`` must exist: on a
-    machine without a GPU, pass ``device="cpu"`` to run the plain
-    versions.  ``hash_width`` (16/32/64) and ``variant`` ("nthash1", or
-    "nthash2" for l > 31) select the minimizer hash; ``strict_limits``
-    raises KSizeTooBig past the reference's limits for nthash1."""
+    a pre-encoded integer array of xcodes.  ``backend="torch"`` runs the
+    pipeline on ``device``, which must exist: on a machine without a GPU,
+    pass ``device="cpu"`` to run the plain versions.  ``backend="oracle"``
+    runs the numpy oracle and ignores ``device``.  ``hash_width``
+    (16/32/64) and ``variant`` ("nthash1", or "nthash2" for l > 31) select
+    the minimizer hash; ``strict_limits`` raises KSizeTooBig past the
+    reference's limits for nthash1, on either backend."""
     mode = _mode_name(mode)
-    device = _device(device)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: one of {BACKENDS}")
     if strict_limits and variant == "nthash1":
         if mode in ("simd", "hpcsimd") and l > MAX_L_SIMD:
             raise KSizeTooBig(f"l={l} exceeds {MAX_L_SIMD} for SIMD modes")
         if mode == "hpc" and l > MAX_L_HPC:
             raise KSizeTooBig(f"l={l} exceeds {MAX_L_HPC} for Hpc mode")
+    if backend == "oracle":
+        return oracle_kminmers(seq, l, k, density, HashMode(mode), hash_width, variant)
+    device = _device(device)
     spec = PipelineSpec(
         l=l, k=k, density=density, mode=mode, hash_width=hash_width,
         variant=variant,
@@ -198,11 +179,11 @@ class KminmersIterator:
     def __init__(
         self, seq, l: int, k: int, density: float, mode="regular",
         device="cuda", strict_limits: bool = True, hash_width: int = 32,
-        variant: str = "nthash1",
+        variant: str = "nthash1", *, backend: str = "torch",
     ):
         self._records = kminmers_list(
             seq, l, k, density, mode, device, strict_limits=strict_limits,
-            hash_width=hash_width, variant=variant,
+            hash_width=hash_width, variant=variant, backend=backend,
         )
 
     def __iter__(self) -> Iterator[KminmerRecord]:

@@ -22,11 +22,12 @@ from __future__ import annotations
 import struct
 import warnings
 from dataclasses import dataclass, field
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
 import numpy as np
 
 from .api import HashMode, KminmerRecord, _device, _mode_name, run_single
+from .oracle import nthash1_minimizer_space  # noqa: F401  (a name of this module)
 from .ops.pipeline import PipelineSpec
 
 _M64 = (1 << 64) - 1
@@ -211,19 +212,6 @@ def kminmer_hash_from_mers(
     rev = mers[::-1] < mers
     h = fxhash64_of_mers(mers[::-1] if rev else mers, mer_width)
     return KminmerRecord(hash=h, start=start, end=end, offset=offset, rev=rev)
-
-
-def nthash1_minimizer_space(kminmer) -> Tuple[int, bool]:
-    """One k-min-mer's hash from its k mixed u64 minimizer hashes, not
-    rolling: the reference's test oracle (src/lib.rs:275-288).
-    -> (hash, rev)."""
-    m = [int(x) for x in kminmer]
-    k = len(m)
-    fhash = rhash = 0
-    for i, x in enumerate(m):
-        fhash ^= _rol64(x, (k - 1 - i) % 64)
-        rhash ^= _rol64(x, i % 64)
-    return min(fhash, rhash), rhash < fhash
 
 
 def kminmers_vec(

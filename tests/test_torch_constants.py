@@ -136,9 +136,10 @@ def test_spec_from_jax_rejects_unported_widths():
 
 def test_port_imports_without_jax():
     """With jax made unimportable, the port imports and runs its CPU
-    pipeline, long-read path, file reader, streaming runner and command
-    line, imports its profiling script and its multi-process layer, and
-    never loads the reference package."""
+    pipeline, long-read path, file reader, streaming runner, command line
+    and numpy oracle (``backend="oracle"``), imports its profiling
+    script, its multi-process layer, its benchmark suite and its burn-in,
+    and never loads the reference package."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -151,12 +152,18 @@ from rust_seq2kminmers_torch.scripts import prof_long_read, prof_mxu_compact, pr
 from rust_seq2kminmers_torch import hpc_strings, kminmer, __main__ as cli
 from rust_seq2kminmers_torch.io import fasta, stream
 from rust_seq2kminmers_torch.parallel import driver, launch, mesh, multihost, seqshard
+from rust_seq2kminmers_torch import bench_suite, oracle
+from rust_seq2kminmers_torch.scripts import burnin
 codes = p.constants.with_keep_bits(np.random.default_rng(0).integers(0, 4, (2, 4096)))
 for spec in (p.PipelineSpec(l=31, k=5, density=0.05, mode="hpcsimd"),
              p.PipelineSpec(l=301, k=5, density=0.05, mode="hpc", hash_width=64)):
     out = p.kminmer_pipeline(torch.from_numpy(codes), torch.tensor([4096, 3000], dtype=torch.int32), spec)
     assert int(out.n_kminmers.sum()) > 0
-assert len(p.kminmers_list("ACGT" * 100, 10, 3, 0.2, "hpc", device="cpu")) > 0
+recs = p.kminmers_list("ACGT" * 100, 10, 3, 0.2, "hpc", device="cpu")
+assert len(recs) > 0 and recs == p.kminmers_list("ACGT" * 100, 10, 3, 0.2, "hpc", backend="oracle")
+assert recs == list(p.KminmersIterator("ACGT" * 100, 10, 3, 0.2, "hpc", backend="oracle"))
+assert [r.start for r in recs] == [r.start for r in oracle.kminmers("ACGT" * 100, 10, 3, 0.2, oracle.HashMode.Hpc)]
+assert [r["case"] for r in bench_suite.host_cases(100)][0] == "hpc_plain" and burnin.ALPHABETS
 assert len(p.kminmers_long("ACGTTGCA" * 500, 10, 3, 0.2, "hpc", chunk=1024, device="cpu")["hash"]) > 0
 assert len(prof_mxu_compact.tile_inputs()[4][0]) == 4
 assert prof_long_read.random_read(64).shape == (64,)
