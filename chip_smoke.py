@@ -23,8 +23,9 @@ streaming runner, batches of the fused route; and the command line),
 the multi-process layer (``rust_seq2kminmers_torch/parallel``: the
 data-parallel step, the sequence-sharded step, whose shards run K1's
 passes 1-2, K1 from the carry, K2 and K3, and the distributed file runner,
-in worlds of spawned ranks on the one card), and last the burn-in against
-the numpy oracle and the per-stage benchmark suite.
+in worlds of spawned ranks on the one card), the burn-in against the
+numpy oracle, the per-stage benchmark suite, and last the compiled step
+(captured CUDA graphs) with the twin of ``bench.py``.
 
 In order, and any failure raises (exit code != 0):
 
@@ -46,7 +47,8 @@ In order, and any failure raises (exit code != 0):
   4. reproduces the 15 u32 and 20 u64 golden hashes
      (tests/data/ecoli.genome.100k.fa, regular, l=10, k=5, d=0.0001) on
      the card;
-  5. runs each path through ``kminmers_batch`` with the launch counters
+  5. runs each path through ``kminmers_batch`` (a replay of the path's
+     captured graph, captured just before) with the launch counters
      set to zero just before and read just after: each path must launch
      its kernels (the general path K4's HPC form, the general scan and K3,
      never K1 or K2), and all 12 KminmerBatch fields must equal the plain
@@ -121,10 +123,25 @@ In order, and any failure raises (exit code != 0):
      ones and K4's HPC form for those in an hpc mode.
  14. runs the per-stage suite (``rust_seq2kminmers_torch/bench_suite.py``):
      its 6 host rows, and its 9 device rows at [32, 2^20] with 16 steps a
-     unit, the counters at zero; the 8 pipeline cases must have launched
-     K1, K2 and K3 at every step; each pipeline case's checksum of one step
+     unit, the counters at zero; a unit is one captured graph, so each
+     case runs its capture's eager warm-up unit, one warm replay and 3
+     timed replays, and the 8 pipeline cases must have launched K1, K2 and
+     K3 at every step of those; each pipeline case's checksum of one step
      equals ``kminmer_pipeline_plain``'s on the card, and the dense hash
      stage's first 2^16 columns of row 0 equal the CPU's.
+ 15. runs the compiled step (``make_pipeline``: captured CUDA graphs)
+     with the counters at zero before each use: for the main, general and
+     u64 paths at [32, 1 Mbp], the capture's warm-up launches the path's
+     kernels once, the capture none, and each replay what the capture
+     recorded; the graph's 12 fields equal eager ``kminmer_pipeline`` and
+     the plain pipeline, and a batch survives a later call; eager and
+     graph timed in turns (CUDA events, the host's time to issue a step,
+     device busy under the profiler, the memory a capture holds:
+     ``rust_seq2kminmers_torch/scripts/prof_graph.py``); a rescue after
+     ``precompile_rescue`` captures nothing and equals the CPU run; a
+     capture that fails raises; last the twin of ``bench.py``
+     (``rust_seq2kminmers_torch/scripts/bench.py``) at its defaults, its
+     JSON line printed.
 
 Then summary lines of K1 against its one-block-per-read design, of K2
 and K3 against their designs before the redesign, and of K4 and the
@@ -809,7 +826,9 @@ def suite_phase(dev) -> dict:
           and len(host) == 6, "the suite's rows")
     check(all(r["backend"] == torch.cuda.get_device_name(0) and r["power_limit"]
               for r in rows), "the suite's rows name the card and its power limit")
-    launched = len(cases) * (1 + bs.UNITS) * SUITE_STEPS
+    # A unit is one captured graph: its capture's warm-up runs one unit
+    # eagerly, then one warm replay and UNITS timed replays.
+    launched = len(cases) * (2 + bs.UNITS) * SUITE_STEPS
     log(f"phase 14 launches: {ran}")
     for name in ("fused_scan", "slot_compact", "assemble"):
         check(ran.get(name, 0) == launched,
@@ -828,6 +847,120 @@ def suite_phase(dev) -> dict:
         f"checksums equal kminmer_pipeline_plain's on the card, the dense hash equals the "
         f"CPU's on [1, 2^16]; {time.perf_counter() - t0:.2f} s")
     return ran
+
+
+def graph_phase(dev, card, pool, lengths, path_kernels, small, small_len) -> dict:
+    """Phase 15, the compiled step (``make_pipeline``: captured CUDA
+    graphs) -> the kernels' launches.  For each path at [B, L], the
+    counters at 0 just before each use: the capture's warm-up launches the
+    path's kernels once, the capture nothing, each replay what the capture
+    recorded; a batch the graph returned equals eager ``kminmer_pipeline``
+    and the plain pipeline, and survives a later call; then eager and
+    graph timed in turns (``scripts/prof_graph.py``).  A rescue after
+    ``precompile_rescue`` captures nothing; a capture that fails raises.
+    Last, the twin of ``bench.py`` at its defaults."""
+    import torch
+
+    from rust_seq2kminmers_torch import api
+    from rust_seq2kminmers_torch.ops import pipeline
+    from rust_seq2kminmers_torch.ops.cuda import build
+    from rust_seq2kminmers_torch.ops.cuda.graph import CapturedStep
+    from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
+    from rust_seq2kminmers_torch.scripts import bench as twin
+    from rust_seq2kminmers_torch.scripts import prof_graph as pg
+
+    t0 = time.perf_counter()
+    launches = {}
+
+    def counted():
+        torch.cuda.synchronize()
+        ran = dict(build.launches)
+        for c, n in ran.items():
+            launches[c] = launches.get(c, 0) + n
+        build.launches.clear()
+        return ran
+
+    def same(got, want, what):
+        for name, g, w in zip(want._fields, got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w),
+                  f"{what}: field {name}")
+
+    for path, (ps, used, unused) in path_kernels.items():
+        once = {c: 1 for c in used}
+        fn = pipeline.make_pipeline(ps)
+        build.launches.clear()
+        fn.capture(pool[0], lengths)
+        check(counted() == once, f"phase 15 {path}: the capture's warm-up launches")
+        (step,) = fn.graphs.values()
+        check(dict(step.launches) == once, f"phase 15 {path}: the capture recorded "
+              f"{dict(step.launches)}")
+        first = fn(pool[0], lengths)
+        ran = counted()
+        check(ran == once, f"phase 15 {path}: a replay counted {ran}")
+        kept = [t.clone() for t in first]
+        second = fn(pool[1], lengths)
+        counted()
+        # The comparisons' own launches do not count.
+        same(first, pipeline.kminmer_pipeline(pool[0], lengths, ps), f"{path} graph vs eager")
+        same(second, pipeline.kminmer_pipeline(pool[1], lengths, ps), f"{path} graph vs eager")
+        same(first, pipeline.kminmer_pipeline_plain(pool[0], lengths, ps),
+             f"{path} graph vs plain")
+        build.launches.clear()
+        check(all(torch.equal(g, w) for g, w in zip(first, kept)),
+              f"phase 15 {path}: a later call changed an earlier batch")
+        log(f"phase 15 {path} path [{B}, {L}]: the capture's warm-up launched {once}, the "
+            f"capture nothing, each replay {dict(step.launches)}; the graph's 12 fields equal "
+            "eager kminmer_pipeline and the plain pipeline on the card, and a batch survives "
+            "a later call")
+        del fn, first, second, kept
+        log(f"phase 15 on {card}: " + pg.describe(path, pg.measure_path(ps, pool, lengths)))
+        build.launches.clear()
+
+    # The rescue after precompile_rescue: a tile overflow, M ample.
+    rs = PipelineSpec(l=11, k=3, density=0.05, mode="hpcsimd", max_minimizers=8192,
+                      tile_cap=8)
+    api.precompile_rescue(rs, tuple(small.shape), dev)
+    api._cached_pipeline(rs).capture(small, small_len)
+    retries, real = [], (api.rescue_spec, pipeline.CapturedStep)
+
+    def no_capture(*args):
+        raise RuntimeError("FAILED: a capture after precompile_rescue")
+
+    api.rescue_spec = lambda s_, n=0: retries.append(n) or real[0](s_, n)
+    pipeline.CapturedStep = no_capture
+    try:
+        out = api.kminmers_batch(small, small_len, rs)
+    finally:
+        api.rescue_spec, pipeline.CapturedStep = real
+    counted()
+    check(len(retries) == 1 and real[0](rs, retries[0]) == real[0](rs),
+          f"phase 15 rescue: retries {retries}")
+    check(torch.equal(out.n_minimizers, out.n_minimizers_raw), "phase 15 rescue lost minimizers")
+    same(type(out)(*(t.cpu() for t in out)), api.kminmers_batch(small.cpu(), small_len.cpu(), rs),
+         "phase 15 rescue vs CPU")
+    log(f"phase 15 rescue [4, 2^16] hpcsimd l=11 tile_cap=8 after precompile_rescue: one "
+        f"retry, replays only (no capture), lossless ({int(out.n_minimizers.sum())} "
+        "minimizers), all 12 fields equal the CPU run")
+
+    # A capture that fails raises, and leaves the card and the counters.
+    try:
+        CapturedStep(lambda t: (t + int(t.sum()),), (small_len,), dev)
+        failed = None
+    except RuntimeError as e:
+        failed = e
+    check(failed is not None, "phase 15: a capture with a host sync inside did not raise")
+    check(not build.launches and int((small_len + 1).sum()) == 4 * ((1 << 16) + 1),
+          "phase 15: the card after a failed capture")
+    log(f"phase 15: a capture with a host sync inside raises {type(failed).__name__}: "
+        f"{(str(failed).splitlines() or [''])[0][:120]}")
+
+    rec = twin.run()
+    counted()
+    log(json.dumps(rec))
+    check(rec["value"] > 0 and rec["detail"]["device"].startswith(card.split(",")[0]),
+          "the twin's line")
+    log(f"phase 15: {time.perf_counter() - t0:.2f} s")
+    return launches
 
 
 def main():
@@ -1092,6 +1225,7 @@ def main():
     counters = sorted({c for cs in COUNTERS.values() for c in cs})
     launches = {c: 0 for c in counters}
     for path, (ps, used, unused) in path_kernels.items():
+        api._cached_pipeline(ps).capture(codes, lengths)  # so the run below replays
         build.launches.clear()
         out = kminmers_batch(codes, lengths, ps)
         torch.cuda.synchronize()
@@ -1676,6 +1810,11 @@ def main():
 
     # 14. the per-stage suite, counters at 0 just before its device cases
     for name, n in suite_phase(dev).items():
+        if name in launches:
+            launches[name] += n
+
+    # 15. the compiled step, counters at 0 just before each use
+    for name, n in graph_phase(dev, card, pool, lengths, path_kernels, small, small_len).items():
         if name in launches:
             launches[name] += n
 

@@ -20,7 +20,7 @@ from .kminmer import (
 )
 from .oracle import HashMode, KminmerRecord, nthash1_minimizer_space
 from .ops.long_read import kminmers_long, kminmers_long_batch
-from .ops.pipeline import KminmerBatch, PipelineSpec, kminmer_pipeline
+from .ops.pipeline import KminmerBatch, PipelineSpec, kminmer_pipeline, make_pipeline
 
 __version__ = "0.1.0"
 
@@ -46,5 +46,6 @@ __all__ = [
     "kminmers_long",
     "kminmers_long_batch",
     "kminmers_vec",
+    "make_pipeline",
     "nthash1_minimizer_space",
 ]

@@ -89,7 +89,7 @@ def run_file(
         f"records ({st.total_bases / st.wall_s / 1e9:.3f} GB/s end-to-end; "
         f"{st.batches} batches in {st.buckets} length buckets, "
         f"{st.pack_s:.3f}s host packing overlapped; "
-        f"program warm-up {st.warm_s:.3f}s in background, first result at "
+        f"kernel load and graph capture {st.warm_s:.3f}s, first result at "
         f"{st.first_result_s:.3f}s)."
     )
     if out is not None:

@@ -6,12 +6,16 @@ mirror the reference package's surface (``hash_width``, ``variant``,
 single read is padded to a power-of-two length and run through the
 batched pipeline on ``device``, and with ``backend="oracle"`` through the
 numpy oracle (``oracle.py``, the semantic specification) on the host.
-``kminmers_batch`` adds the overflow rescue to ``kminmer_pipeline``.
+``kminmers_batch`` adds the overflow rescue to the compiled pipeline
+(``make_pipeline``, cached per spec as the reference caches its jitted
+pipelines); ``precompile_rescue`` captures the rescue's step ahead of a
+run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Iterator, List
 
 import numpy as np
@@ -20,7 +24,7 @@ import torch
 from .constants import MODES, XCODE_PAD, encode_xcodes, family_of_mode
 from .oracle import HashMode, KminmerRecord
 from .oracle import kminmers as oracle_kminmers
-from .ops.pipeline import PipelineSpec, kminmer_pipeline
+from .ops.pipeline import PipelineSpec, make_pipeline
 from .ops.u64 import to_py_u64
 
 # Reference limits: the SIMD paths assert l <= 31, where 32-bit NtHash1
@@ -53,6 +57,13 @@ def _bucket_length(n: int) -> int:
     return b
 
 
+@functools.lru_cache(maxsize=64)
+def _cached_pipeline(spec: PipelineSpec):
+    """The compiled pipeline of a spec, shared by every caller; one that
+    the cache drops frees its graphs' memory pools."""
+    return make_pipeline(spec)
+
+
 def _round_cap(n: int) -> int:
     """Round capacities up to powers of two."""
     c = 128
@@ -83,15 +94,33 @@ def rescue_spec(spec: PipelineSpec, m_cap_needed: int = 0) -> PipelineSpec:
     return dataclasses.replace(spec, **changes)
 
 
+def precompile_rescue(spec: PipelineSpec, batch_shape, device="cuda") -> None:
+    """Capture the rescue's step (``rescue_spec(spec)``) for a (B, L) batch
+    on ``device`` now, so that a later overflow replays a graph instead of
+    capturing one mid-stream.  Cheap to repeat: the pipeline and its graph
+    are cached.  On the CPU it runs the step once, as the reference runs
+    its jitted step there."""
+    B, L = batch_shape
+    device = _device(device)
+    fn = _cached_pipeline(rescue_spec(spec))
+    codes = torch.zeros((B, L), dtype=torch.uint8, device=device)
+    lengths = torch.zeros((B,), dtype=torch.int32, device=device)
+    if device.type == "cuda":
+        fn.capture(codes, lengths)
+    else:
+        fn(codes, lengths)
+
+
 def kminmers_batch(codes, lengths, spec: PipelineSpec, max_retries: int = 8):
-    """kminmer_pipeline with overflow rescue.  A read whose raw selected
-    count exceeds its kept count lost survivors to a tile's or the
-    stream's capacity (on the general path, only to the stream's); the
-    batch then reruns on ``rescue_spec``.
+    """The compiled pipeline (``_cached_pipeline``) with overflow rescue.
+    A read whose raw selected count exceeds its kept count lost survivors
+    to a tile's or the stream's capacity (on the general path, only to the
+    stream's); the batch then reruns on ``rescue_spec``.  The overflow
+    check's fetch is the host's, outside the graph.
 
     Returns a KminmerBatch whose n_minimizers == n_minimizers_raw."""
     for _ in range(max_retries):
-        out = kminmer_pipeline(codes, lengths, spec)
+        out = _cached_pipeline(spec)(codes, lengths)
         n_raw = out.n_minimizers_raw.cpu()
         if bool((out.n_minimizers.cpu() >= n_raw).all()):
             return out

@@ -11,13 +11,15 @@ hpc at l=100, hash widths 64 and 16).
 Prints one JSON line a case: {"case", "value", "unit", ...}.
 
 Device cases: a pool of 8 distinct [B, L] batches of random ACGT with
-keep bits, made on the device from a seeded generator; a unit enqueues
-``steps`` calls over ``pool[(i + salt) % 8]`` and adds each call's
-checksum into one device scalar, so no output can go unread, and the
-host reads that scalar once (its one sync); one warm unit, then the
-median of 3.  ``value`` is B * L bases over the median step time, on the
-device each row names, with the card's power limit beside it.  A CUDA
-device that does not exist raises: nothing falls back to the CPU.
+keep bits, made on the device from a seeded generator; a unit makes
+``steps`` calls over ``pool[i % 8]`` and adds each call's checksum into
+one device scalar, so no output can go unread, and the host reads that
+scalar once (its one sync).  On the card the unit is one captured CUDA
+graph, as the reference's unit is one jitted scan; its warm-up run and
+one replay warm it, then the median of 3 replays.  ``value`` is B * L
+bases over the median step time, on the device each row names, with the
+card's power limit beside it.  A CUDA device that does not exist raises:
+nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -92,13 +94,13 @@ def batch_shape(size: int):
     return B, L
 
 
-def make_pool(B: int, L: int, device) -> torch.Tensor:
-    """uint8[POOL, B, L]: random ACGT xcodes, made on ``device`` from a
+def make_pool(B: int, L: int, device, n: int = POOL) -> torch.Tensor:
+    """uint8[n, B, L]: random ACGT xcodes, made on ``device`` from a
     generator seeded with SEED."""
     from .ops.hpc import with_keep_bits_device
 
     g = torch.Generator(device=device).manual_seed(SEED)
-    pool = torch.empty((POOL, B, L), dtype=torch.uint8, device=device)
+    pool = torch.empty((n, B, L), dtype=torch.uint8, device=device)
     for p in pool:
         p.copy_(with_keep_bits_device(torch.randint(
             0, 4, (B, L), generator=g, dtype=torch.uint8, device=device)))
@@ -154,23 +156,37 @@ def card(device: torch.device):
     return torch.cuda.get_device_name(device), smi
 
 
-def _step_seconds(step, pool, steps: int) -> float:
-    """Median over UNITS units (after a warm one) of a unit's host-clock
-    time, over its steps."""
+def timed_units(step, pool, steps: int):
+    """-> (the median over UNITS units, after a warm one, of a unit's
+    host-clock time over its steps; the last unit's sums, as ints).  A
+    unit is ``steps`` calls of ``step`` over ``pool[i % len(pool)]``, each
+    call's tuple of device scalars added into the unit's sums on the
+    device; the host reads the sums once (the unit's one sync).
 
-    def unit(salt):
-        acc = torch.zeros((), dtype=torch.int64, device=pool.device)
+    On the card the unit is one captured graph (``ops/cuda/graph.py``)
+    that reads the resident pool in place, and each unit replays it; its
+    capture's warm-up is one eager unit.  The reference's unit takes a
+    ``salt`` that shifts the pool index only so that XLA cannot fold one
+    unit into the next; the card caches nothing between replays, so one
+    capture of the unit serves every unit, and the salt is gone."""
+    from .ops.cuda.graph import CapturedStep
+
+    def unit():
+        sums = None
         for i in range(steps):
-            acc += step(pool[(i + salt) % POOL])
-        return int(acc)  # the unit's one host sync
+            got = step(pool[i % len(pool)])
+            sums = got if sums is None else tuple(a + b for a, b in zip(sums, got))
+        return sums
 
-    unit(0)
+    if pool.device.type == "cuda":
+        unit = CapturedStep(unit, (), pool.device)
+    unit()  # warm
     ts = []
-    for salt in range(UNITS):
+    for _ in range(UNITS):
         t0 = time.perf_counter()
-        unit(salt)
+        sums = [int(v) for v in unit()]  # the unit's one sync
         ts.append(time.perf_counter() - t0)
-    return float(np.median(ts)) / steps
+    return float(np.median(ts)) / steps, sums
 
 
 def device_cases(size: int, steps: int, device="cuda"):
@@ -185,7 +201,7 @@ def device_cases(size: int, steps: int, device="cuda"):
     lengths = torch.full((B,), L, dtype=torch.int32, device=device)
 
     def row(case, step, extra=None):
-        dt = _step_seconds(step, pool, steps)
+        dt = timed_units(lambda codes: (step(codes),), pool, steps)[0]
         return {
             "case": case,
             "value": B * L / dt / 1e9,

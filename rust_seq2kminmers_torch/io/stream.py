@@ -12,10 +12,12 @@ the batches cheap:
   * **Overlap.**  A producer thread packs each batch with the native
     reader (``FastaFile.pack_indices``) straight into a pinned host buffer
     from a small pool.  The main thread copies it to the device on a side
-    stream, makes the compute stream wait for the copy, and dispatches
-    ``kminmer_pipeline``; two batches are in flight before the older one
-    is read back.  The producer touches no CUDA API, and a buffer goes
-    back to it only after the copy out of it has completed.
+    stream, makes the compute stream wait for the copy, and replays the
+    spec's compiled pipeline (``api._cached_pipeline``: one captured CUDA
+    graph per bucket shape, every shape captured before the producer
+    starts); two batches are in flight before the older one is read back.
+    The producer touches no CUDA API, and a buffer goes back to it only
+    after the copy out of it has completed.
 
 Reading a batch back fetches its three count vectors first, reruns it
 through ``api.kminmers_batch`` if a read lost minimizers to a capacity,
@@ -38,9 +40,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..api import _device, kminmers_batch
+from ..api import _cached_pipeline, _device, kminmers_batch
 from ..constants import family_of_mode
-from ..ops.pipeline import kminmer_pipeline
 from ..parallel.driver import stitch_records
 from .fasta import FastaFile
 
@@ -86,8 +87,9 @@ class StreamStats:
     pack_s: float  # the producer thread's packing time (overlapped)
     batches: int
     buckets: int
-    # Time the run spent building or loading the kernel library, while the
-    # producer packs (0.0 when it was already loaded, and on the CPU).
+    # Time the run spent building or loading the kernel library and
+    # capturing each bucket's graph, before the producer starts (0.0 when
+    # both were done by an earlier run in this process, and on the CPU).
     warm_s: float = 0.0
     # From the start of the run to the first batch read back.
     first_result_s: float = 0.0
@@ -234,15 +236,18 @@ class StreamingRunner:
             print(f"  batch of {n} reads -> {total} k-min-mers", flush=True)
         return total
 
-    def _load_kernels(self) -> float:
-        """Build or load the kernel library now -> the seconds it took (0.0
-        if an earlier call in this process loaded it)."""
-        from ..ops.cuda import build
-
-        if build.library.cache_info().currsize:
-            return 0.0
+    def _warm(self, pipe, plan) -> float:
+        """Build or load the kernel library and capture the pipeline's graph
+        for every bucket shape of the plan, now -> the seconds it took.  A
+        capture rejects CUDA calls from other threads, so this runs before
+        the producer starts (the counterpart of the reference's warm
+        thread)."""
         t0 = time.perf_counter()
-        build.library()
+        for pad, rows, _ in plan:
+            pipe.capture(
+                torch.zeros((rows, pad), dtype=torch.uint8, device=self.device),
+                torch.zeros((rows,), dtype=torch.int32, device=self.device),
+            )
         return time.perf_counter() - t0
 
     def run(self, progress: bool = False) -> StreamStats:
@@ -250,8 +255,10 @@ class StreamingRunner:
         n = len(lens)
         plan = plan_buckets(lens, self.target_cells)
         cuda = self.device.type == "cuda"
+        pipe = _cached_pipeline(self.spec)
         t0 = time.perf_counter()
         free = None
+        warm_s = 0.0
         if cuda:
             # The pinned pool: enough slots for the queue, the batch being
             # packed and the one being copied.
@@ -262,6 +269,7 @@ class StreamingRunner:
                 free.put(_Slot(cells, max_rows))
             copy_stream = torch.cuda.Stream(self.device)
             compute = torch.cuda.current_stream(self.device)
+            warm_s = self._warm(pipe, plan)
         q: queue.Queue = queue.Queue(maxsize=self.queue_depth)
         stop = threading.Event()
         producer = threading.Thread(
@@ -276,7 +284,6 @@ class StreamingRunner:
         copies = []  # (copy event, slot) not yet back in the pool
         timing = collections.Counter()
         try:
-            warm_s = self._load_kernels() if cuda else 0.0
             while True:
                 t_wait = time.perf_counter()
                 item = q.get()
@@ -300,7 +307,7 @@ class StreamingRunner:
                     copies.append((copied, slot))
                 else:
                     dcodes, dlens = torch.from_numpy(codes), torch.from_numpy(lengths)
-                out = kminmer_pipeline(dcodes, dlens, self.spec)
+                out = pipe(dcodes, dlens)
                 inflight.append((chunk, dcodes, dlens, out))
                 batches += 1
                 if len(inflight) >= IN_FLIGHT:

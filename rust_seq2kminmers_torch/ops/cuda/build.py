@@ -12,6 +12,7 @@ its launch; ``check`` turns a non-zero code into an exception.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -33,8 +34,27 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 ]
 
-# Kernel launches per wrapper, counted where each wrapper launches.
+# Kernel launches per wrapper, counted where each wrapper launches, and
+# where a captured graph that holds the launch is replayed (``graph.py``).
 launches: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def counted_as_captured():
+    """For a graph capture: the wrappers run inside the block record
+    their launches into the graph but launch nothing.  So at the end of
+    the block their rise is taken back out of ``launches`` and left in the
+    Counter the block yields, which each replay of the graph adds back.
+    Launches made meanwhile by another thread would be taken out too; a
+    capture runs while no other thread launches."""
+    before = launches.copy()
+    rise: collections.Counter = collections.Counter()
+    try:
+        yield rise
+    finally:
+        rise.update(launches - before)
+        launches.clear()
+        launches.update(before)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,8 @@ widths up to 32 zero-extended, width 64 as bit patterns (see
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,7 +30,14 @@ def seed_lookup(table, codes: torch.Tensor) -> torch.Tensor:
     table = np.asarray(table)
     t = np.zeros(8, dtype=np.int64)
     t[: len(table)] = table.view(np.int64) if table.dtype == np.uint64 else table
-    return torch.as_tensor(t, device=codes.device)[codes.to(torch.int64) & 7]
+    return _table_on(t.tobytes(), codes.device)[codes.to(torch.int64) & 7]
+
+
+@functools.lru_cache(maxsize=None)
+def _table_on(data: bytes, device: torch.device) -> torch.Tensor:
+    """The int64 table on the device, copied there once: a copy from host
+    memory cannot be captured into a CUDA graph, a read of this can."""
+    return torch.tensor(np.frombuffer(data, dtype=np.int64), device=device)
 
 
 def _shift_left(x: torch.Tensor, s: int) -> torch.Tensor:

@@ -37,12 +37,16 @@ Per-mode conventions (bit-exact with the reference package):
 On CUDA tensors every kernel stage launches its kernel; on CPU tensors
 every stage runs its plain version.  ``kminmer_pipeline_plain`` runs the
 plain versions on any device, as the reference the kernels are held
-against.
+against.  ``make_pipeline(spec)`` is the compiled step, as the reference
+jits it: on the card, one captured CUDA graph of ``kminmer_pipeline`` per
+input shape, replayed as one launch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -64,6 +68,7 @@ from .cuda.fused_scan import (
     fused_scan_plain,
 )
 from .cuda.general_scan import general_minimizers, general_minimizers_plain
+from .cuda.graph import CapturedStep
 from .cuda.masked_compact import hpc_compact
 from .cuda.slot_compact import slot_compact_counts, slot_compact_counts_plain
 from .hpc import hpc_compress_packed
@@ -252,6 +257,60 @@ def _general_minimizers(codes, lengths, spec, stages, m_cap):
         stream, eff_len, lengths, spec.l, spec.bound, spec.strict_threshold,
         spec.mode, spec.hash_width, spec.variant, m_cap,
     )
+
+
+class CompiledPipeline:
+    """``make_pipeline(spec)``: ``fn(codes, lengths) -> KminmerBatch``, the
+    counterpart of the reference's jitted pipeline.
+
+    On CUDA tensors each key (device, codes shape and dtype, lengths
+    shape) gets one captured graph of ``kminmer_pipeline``
+    (``ops/cuda/graph.py``), captured on the key's first call, as jit
+    compiles on a shape's first call, and replayed on every call;
+    ``capture`` captures a key ahead of its first call.  ``lengths`` of
+    another integer dtype are cast to int32 first, as the reference's
+    caller does.  A call reads its inputs when it is called and returns a
+    new batch that later calls leave alone; its 12 fields are bit for bit
+    those of ``kminmer_pipeline``.  On CPU tensors it is
+    ``kminmer_pipeline``.  Calls are serialised by a lock.  ``graphs``
+    holds the captured steps; dropping the object frees their memory
+    pools."""
+
+    def __init__(self, spec: PipelineSpec):
+        self.spec = spec
+        self.graphs: dict = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, codes: torch.Tensor, lengths: torch.Tensor) -> KminmerBatch:
+        if codes.device.type != "cuda":
+            return kminmer_pipeline(codes, lengths, self.spec)
+        if lengths.dtype != torch.int32:
+            lengths = lengths.to(torch.int32)
+        with self._lock:
+            return KminmerBatch(*self._step(codes, lengths)(codes, lengths))
+
+    def capture(self, codes: torch.Tensor, lengths: torch.Tensor) -> None:
+        """Capture the graph for the key of these CUDA inputs now, unless it
+        exists: ahead of a run whose threads must not meet a capture."""
+        with self._lock:
+            self._step(codes, lengths.to(torch.int32))
+
+    def _step(self, codes, lengths) -> CapturedStep:
+        key = (codes.device, tuple(codes.shape), codes.dtype, tuple(lengths.shape))
+        step = self.graphs.get(key)
+        if step is None:
+            step = self.graphs[key] = CapturedStep(
+                functools.partial(kminmer_pipeline, spec=self.spec), (codes, lengths),
+                codes.device,
+            )
+        return step
+
+
+def make_pipeline(spec: PipelineSpec) -> CompiledPipeline:
+    """-> fn(codes uint8[B, L], lengths int32[B]) -> KminmerBatch: the
+    pipeline for ``spec``, one captured CUDA graph per input shape on the
+    card (``CompiledPipeline``)."""
+    return CompiledPipeline(spec)
 
 
 def _assemble(spec, stages, min_start, min_end, min_hash, min_hash_hi, n_min, n_raw):

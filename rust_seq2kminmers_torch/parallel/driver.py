@@ -19,8 +19,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..api import _device
-from ..ops.pipeline import KminmerBatch, PipelineSpec, kminmer_pipeline
+from ..api import _cached_pipeline, _device
+from ..ops.pipeline import KminmerBatch, PipelineSpec
 from .mesh import all_gather, all_reduce_sum
 
 
@@ -40,14 +40,18 @@ def make_dp_pipeline(spec: PipelineSpec, mesh, device="cuda"):
     Every rank of the mesh's data dimension calls the step together; the
     counts go through an all-gather over 'data' (4 bytes a read), and
     ``lost`` is the same on every rank, so a retry (``multihost``) stays
-    collective."""
+    collective.  The reference jits the whole step; here the local
+    pipeline is the spec's compiled one (``api._cached_pipeline``, a
+    captured graph on the card) and the two collectives run after it,
+    outside the graph: gloo's go through the host."""
     device = _device(device)
+    pipe = _cached_pipeline(spec)
     group = mesh.get_group("data")
     n_data, rank = dist.get_world_size(group), dist.get_rank(group)
 
     def step(codes, lengths) -> ShardedKminmers:
-        out = kminmer_pipeline(torch.as_tensor(codes).to(device).contiguous(),
-                               torch.as_tensor(lengths).to(device, torch.int32), spec)
+        out = pipe(torch.as_tensor(codes).to(device).contiguous(),
+                   torch.as_tensor(lengths).to(device, torch.int32))
         counts = out.n_kminmers
         b_local = counts.shape[0]
         all_counts = all_gather(counts, group).view(n_data * b_local)

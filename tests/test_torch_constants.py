@@ -139,7 +139,9 @@ def test_port_imports_without_jax():
     pipeline, long-read path, file reader, streaming runner, command line
     and numpy oracle (``backend="oracle"``), imports its profiling
     script, its multi-process layer, its benchmark suite and its burn-in,
-    and never loads the reference package."""
+    runs its compiled step on the CPU (``make_pipeline``, whose graph
+    module and bench twin it imports), and never loads the reference
+    package."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -154,16 +156,21 @@ from rust_seq2kminmers_torch.io import fasta, stream
 from rust_seq2kminmers_torch.parallel import driver, launch, mesh, multihost, seqshard
 from rust_seq2kminmers_torch import bench_suite, oracle
 from rust_seq2kminmers_torch.scripts import burnin
+from rust_seq2kminmers_torch.ops.cuda import graph
+from rust_seq2kminmers_torch.scripts import bench as twin, prof_graph
 codes = p.constants.with_keep_bits(np.random.default_rng(0).integers(0, 4, (2, 4096)))
 for spec in (p.PipelineSpec(l=31, k=5, density=0.05, mode="hpcsimd"),
              p.PipelineSpec(l=301, k=5, density=0.05, mode="hpc", hash_width=64)):
     out = p.kminmer_pipeline(torch.from_numpy(codes), torch.tensor([4096, 3000], dtype=torch.int32), spec)
     assert int(out.n_kminmers.sum()) > 0
+    again = p.make_pipeline(spec)(torch.from_numpy(codes), torch.tensor([4096, 3000], dtype=torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 recs = p.kminmers_list("ACGT" * 100, 10, 3, 0.2, "hpc", device="cpu")
 assert len(recs) > 0 and recs == p.kminmers_list("ACGT" * 100, 10, 3, 0.2, "hpc", backend="oracle")
 assert recs == list(p.KminmersIterator("ACGT" * 100, 10, 3, 0.2, "hpc", backend="oracle"))
 assert [r.start for r in recs] == [r.start for r in oracle.kminmers("ACGT" * 100, 10, 3, 0.2, oracle.HashMode.Hpc)]
 assert [r["case"] for r in bench_suite.host_cases(100)][0] == "hpc_plain" and burnin.ALPHABETS
+assert graph.CapturedStep and twin.POOL == 16 and "main" in prof_graph.path_specs()
 assert len(p.kminmers_long("ACGTTGCA" * 500, 10, 3, 0.2, "hpc", chunk=1024, device="cpu")["hash"]) > 0
 assert len(prof_mxu_compact.tile_inputs()[4][0]) == 4
 assert prof_long_read.random_read(64).shape == (64,)

@@ -632,12 +632,15 @@ def test_overflow_rescue_on_card(cuda, monkeypatch, mode, l, tile_cap, family):
     first = kminmer_pipeline(torch.from_numpy(codes).to(cuda), lengths.to(cuda), spec)
     assert int(first.n_minimizers[0]) < int(first.n_minimizers_raw[0])
     calls = _count_rescues(monkeypatch, api)
+    api._cached_pipeline.cache_clear()  # so that every run below captures its graph
     before = dict(build.launches)
     out = kminmers_batch(torch.from_numpy(codes).to(cuda), lengths.to(cuda), spec)
     ran = {name: build.launches[name] - before.get(name, 0) for name in build.launches}
-    assert len(calls) >= 1 and ran["assemble"] == len(calls) + 1
+    # Each run, the first and each retry, is its graph's capture: the
+    # capture's warm-up launches once and the replay once.
+    assert len(calls) >= 1 and ran["assemble"] == 2 * (len(calls) + 1)
     key = "fused_scan" if spec.fused else "general_scan"
-    assert ran[key] == len(calls) + 1
+    assert ran[key] == 2 * (len(calls) + 1)
     assert torch.equal(out.n_minimizers, out.n_minimizers_raw)
     want = kminmers_batch(torch.from_numpy(codes), lengths, spec)
     for name, g, w in zip(out._fields, out, want):
@@ -850,3 +853,144 @@ def test_kminmers_vec_on_card(cuda, mode, hash_width):
     assert len(got) > 100
     assert [(v.mers, v.start, v.end, v.offset, v.rev) for v in got] == [
         (v.mers, v.start, v.end, v.offset, v.rev) for v in want]
+
+
+# ---- the compiled step: captured CUDA graphs ----------------------------------
+
+from rust_seq2kminmers_torch import bench_suite  # noqa: E402
+from rust_seq2kminmers_torch.ops import pipeline  # noqa: E402
+from rust_seq2kminmers_torch.ops.cuda.graph import CapturedStep  # noqa: E402
+
+GRAPH_SPECS = {
+    "main": PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd"),
+    "general": PipelineSpec(l=301, k=5, density=0.01, mode="hpcsimd", variant="nthash2"),
+    "u64": PipelineSpec(l=31, k=5, density=0.01, mode="regular", hash_width=64),
+}
+
+
+def _graph_inputs(cuda, B=4, L=1 << 16):
+    """Two batches of random ACGT, XCODE_PAD past ragged lengths."""
+    rng = np.random.default_rng(11)
+    lengths = (L - rng.integers(0, L // 4, B)).astype(np.int32)
+    batches = []
+    for _ in range(2):
+        codes = with_keep_bits(rng.integers(0, 4, (B, L), dtype=np.uint8))
+        for b in range(B):
+            codes[b, lengths[b]:] = XCODE_PAD
+        batches.append(torch.from_numpy(codes).to(cuda))
+    return batches, torch.from_numpy(lengths).to(cuda)
+
+
+def _same_batch(got, want):
+    for name, g, w in zip(want._fields, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("path", list(GRAPH_SPECS))
+def test_graph_equals_eager(cuda, path):
+    """Every call of make_pipeline's fn, before and after its key is
+    captured, equals eager kminmer_pipeline in all 12 fields; one graph."""
+    spec = GRAPH_SPECS[path]
+    batches, lengths = _graph_inputs(cuda)
+    fn = pipeline.make_pipeline(spec)
+    for i in range(4):
+        got = fn(batches[i % 2], lengths)
+        _same_batch(got, kminmer_pipeline(batches[i % 2], lengths, spec))
+    assert int(got.n_kminmers.sum()) > 0 and len(fn.graphs) == 1
+
+
+def test_graph_outputs_survive_later_calls(cuda):
+    """A batch the graph returned is not touched by later replays, and a
+    call reads its inputs when it is called."""
+    spec = GRAPH_SPECS["main"]
+    batches, lengths = _graph_inputs(cuda)
+    fn = pipeline.make_pipeline(spec)
+    fn.capture(batches[0], lengths)
+    first = fn(batches[0], lengths)
+    kept = [t.clone() for t in first]
+    x = batches[0].clone()
+    second = fn(x, lengths)
+    x.copy_(batches[1])  # after the call: the call has read x already
+    third = fn(batches[1], lengths)
+    torch.cuda.synchronize()
+    for name, g, w in zip(first._fields, first, kept):
+        assert torch.equal(g, w), name
+    _same_batch(second, kminmer_pipeline(batches[0], lengths, spec))
+    _same_batch(third, kminmer_pipeline(batches[1], lengths, spec))
+    assert not torch.equal(first.hash_lo, third.hash_lo)
+
+
+def test_graph_counts_replays(cuda):
+    """The capture's warm-up launches once; the capture itself launches
+    nothing, and each replay adds what the capture recorded."""
+    batches, lengths = _graph_inputs(cuda)
+    fn = pipeline.make_pipeline(GRAPH_SPECS["main"])
+    build.launches.clear()
+    fn.capture(batches[0], lengths)
+    once = {"fused_scan": 1, "slot_compact": 1, "assemble": 1}
+    assert dict(build.launches) == once
+    (step,) = fn.graphs.values()
+    assert dict(step.launches) == once
+    build.launches.clear()
+    for i in range(3):
+        fn(batches[i % 2], lengths)
+    assert dict(build.launches) == {k: 3 * n for k, n in once.items()}
+
+
+def test_rescue_after_precompile_captures_nothing(cuda, monkeypatch):
+    """After precompile_rescue (and the spec's own graph), a tile overflow
+    is rescued by replays alone: no capture, one retry, lossless, equal to
+    the CPU run."""
+    seq = FIXTURE.read_text().split("\n")[1][:20000]
+    codes = np.full((1, 32768), XCODE_PAD, dtype=np.uint8)
+    codes[0, : len(seq)] = encode_xcodes(seq, "simd")
+    codes_d = torch.from_numpy(codes).to(cuda)
+    lengths = torch.tensor([len(seq)], dtype=torch.int32)
+    spec = PipelineSpec(l=11, k=3, density=0.05, mode="hpcsimd", max_minimizers=4096,
+                        tile_cap=8)
+    api.precompile_rescue(spec, codes.shape, cuda)
+    api._cached_pipeline(spec).capture(codes_d, lengths.to(cuda))
+
+    def no_capture(*args):
+        raise AssertionError("a capture after precompile_rescue")
+
+    monkeypatch.setattr(pipeline, "CapturedStep", no_capture)
+    calls = _count_rescues(monkeypatch, api)
+    out = kminmers_batch(codes_d, lengths.to(cuda), spec)
+    assert calls == [int(out.n_minimizers_raw.max())] and api.rescue_spec(spec) == \
+        api.rescue_spec(spec, calls[0])
+    assert torch.equal(out.n_minimizers, out.n_minimizers_raw)
+    monkeypatch.undo()
+    want = kminmers_batch(torch.from_numpy(codes), lengths, spec)
+    for name, g, w in zip(out._fields, out, want):
+        assert torch.equal(g.cpu(), w), name
+
+
+def test_failed_capture_raises(cuda):
+    """A step that cannot be captured (a host sync inside) raises; the
+    launch counters and the card are left as they were."""
+    x = torch.arange(1024, device=cuda)
+    before = dict(build.launches)
+    with pytest.raises(RuntimeError):
+        CapturedStep(lambda t: (t + int(t.sum()),), (x,), cuda)
+    torch.cuda.synchronize()
+    assert dict(build.launches) == before
+    assert int((x + 1).sum()) == 1024 * 1025 // 2
+
+
+def test_suite_unit_graph_sums(cuda):
+    """The suite's unit, one captured graph over the resident pool, sums
+    what the same steps sum eagerly."""
+    B, L = 2, 1 << 15
+    pool = bench_suite.make_pool(B, L, cuda, 3)
+    lengths = torch.full((B,), L, dtype=torch.int32, device=cuda)
+    spec = PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd")
+
+    def step(codes):
+        out = kminmer_pipeline(codes, lengths, spec)
+        return bench_suite.checksum(out), out.n_kminmers.sum()
+
+    _, sums = bench_suite.timed_units(step, pool, 5)
+    want = [sum(int(step(pool[i % 3])[j]) for i in range(5)) for j in range(2)]
+    assert sums == want and sums[1] > 0

@@ -139,15 +139,14 @@ def test_kminmers_vec_needs_a_gpu_by_default(ecoli_seq):
         pk.kminmers_vec(ecoli_seq[:1000], 10, 3, 0.1)
 
 
-# The names the reference package's __init__ exports (its lines 10-22),
-# less make_pipeline, which the port leaves out by design.
+# The names the reference package's __init__ exports (its lines 10-22).
 SURFACE = [
     "KminmersIterator", "KSizeTooBig", "kminmers_list", "encode_bases",
     "hash_bound_u32", "hash_bound_simd_u32", "encode_rle", "encode_rle_simd",
     "hpc", "KminmerVec", "fxhash32_of_mers", "fxhash64_of_mers",
     "kminmer_hash_from_mers", "kminmers_vec", "HashMode", "KminmerRecord",
     "nthash1_minimizer_space", "kminmers_long", "kminmers_long_batch",
-    "KminmerBatch", "PipelineSpec", "kminmer_pipeline", "__version__",
+    "KminmerBatch", "PipelineSpec", "kminmer_pipeline", "make_pipeline", "__version__",
 ]
 
 
