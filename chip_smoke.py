@@ -101,10 +101,19 @@ In order, and any failure raises (exit code != 0):
 
  12. runs the multi-process layer, the counters at zero in each rank before
      its run, each rank a process from ``parallel/launch.run_world``:
-     (a) the data-parallel step on [32, 1 Mbp] with the main spec, an NCCL
-     world of one: all 12 fields equal ``kminmers_batch`` and
-     ``merge_ordered`` equals ``stitch_records``; CUDA-event times beside
-     ``kminmer_pipeline``, in turns; (b) phase 10's read sharded over 2 and
+     (a) in an NCCL world of one: the compiled data-parallel step (one
+     captured graph with its all-gather and all-reduce inside) on [32, 1
+     Mbp] with the main spec, three calls with the counters at zero and
+     one capture, each call's 12 fields, global_offset, total and lost
+     equal to ``dp_step`` (the plain function) and ``kminmers_batch``,
+     ``merge_ordered`` equal to ``stitch_records``; phase 5's rescue cells
+     on both routes (the general one runs K4's HPC form and the general
+     scan) retried through the compiled step on ``lost``, equal to
+     ``kminmers_batch``; the compiled sharded step on a (1, 1) mesh over
+     64 Mbp of phase 10's read, equal to ``seq_step`` and
+     ``kminmers_long``; the captures counted; CUDA-event times in turns of
+     ``make_pipeline``'s graph step, the DP step and ``dp_step``; (b)
+     phase 10's read sharded over 2 and
      4 gloo ranks on the card (the stitched records equal phase 10's
      ``kminmers_long``; walls, K1's time per shard, the two all-gathers'
      seconds), and over 1, which K1's 2^28 length cap refuses; (c) [4,
@@ -120,7 +129,10 @@ In order, and any failure raises (exit code != 0):
      alphabets, each sequence's records through ``kminmers_list`` on the
      card equal to ``backend="oracle"``; K1, K2 and K3 must have launched
      for the fused-route sequences, the general scan for the general-route
-     ones and K4's HPC form for those in an hpc mode.
+     ones and K4's HPC form for those in an hpc mode.  Then the memory the
+     graphs hold: ``memory_reserved`` after the burn-in, and over a
+     ``kminmers_batch`` sweep of 120 shapes with and without the cap on
+     captured steps a pipeline keeps.
  14. runs the per-stage suite (``rust_seq2kminmers_torch/bench_suite.py``):
      its 6 host rows, and its 9 device rows at [32, 2^20] with 16 steps a
      unit, the counters at zero; a unit is one captured graph, so each
@@ -413,7 +425,8 @@ def file_phase(dev, card, counters, tmp: Path):
 
 # Phase 12: the multi-process layer.  The rank functions run in processes
 # that run_world spawns; each imports this file as its main module.
-PHASE12_COUNTERS = ("tile_carries", "fused_scan", "slot_compact", "assemble")
+PHASE12_COUNTERS = ("tile_carries", "fused_scan", "slot_compact", "assemble",
+                    "hpc_compact", "general_scan")
 FILE_ROWS_PER_RANK = 128
 
 
@@ -460,24 +473,51 @@ def rank_launches():
     return {c: build.launches[c] for c in PHASE12_COUNTERS}
 
 
-def dp_rank(device):
-    """(a) The data-parallel step at [B, L] with the main spec, in this
-    rank's world of one: its 12 fields against kminmers_batch, merge_ordered
-    against stitch_records, and CUDA-event times of the step and of
-    kminmer_pipeline, in turns.  -> (launches, times, k-min-mers)."""
+def dp_rank(device, long_path):
+    """(a) In this rank's NCCL world of one.  The compiled DP step
+    (``make_dp_pipeline``: one captured graph with its all-gather and
+    all-reduce inside) at [B, L] with the main spec, three calls on phase
+    3's two batches with the counters at 0 just before and the captures
+    counted; each call's 12 fields, global_offset, total and lost equal
+    ``dp_step``'s (the plain function, run in turns) and kminmers_batch's;
+    merge_ordered against stitch_records.  Then phase 5's rescue cells
+    ([4, 2^16], fused and general route) retried through the compiled step
+    on ``lost`` read after each replay, each equal to kminmers_batch; then
+    the compiled sharded step on a (1, 1) mesh over a 64 Mbp prefix of
+    phase 10's read, twice, equal to ``seq_step`` and ``kminmers_long``.
+    Last, CUDA-event times in turns: ``make_pipeline``'s graph step, the DP
+    step, ``dp_step``, the DP step, the graph step.  -> (launches of the
+    main path, launches of the rest, captures, times, k-min-mers)."""
     import numpy as np
     import torch
 
-    from rust_seq2kminmers_torch.api import kminmers_batch
+    from rust_seq2kminmers_torch import api, kminmers_long
+    from rust_seq2kminmers_torch.api import kminmers_batch, rescue_spec
     from rust_seq2kminmers_torch.constants import with_keep_bits
-    from rust_seq2kminmers_torch.ops.cuda import build
-    from rust_seq2kminmers_torch.ops.pipeline import kminmer_pipeline
+    from rust_seq2kminmers_torch.ops.cuda import build, graph
+    from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
+    from rust_seq2kminmers_torch.parallel import seqshard
     from rust_seq2kminmers_torch.parallel.driver import (
+        dp_step,
         make_dp_pipeline,
         merge_ordered,
         stitch_records,
     )
     from rust_seq2kminmers_torch.parallel.mesh import make_mesh
+
+    captures = []
+
+    class Counted(graph.CapturedStep):
+        def __init__(self, *args):
+            captures.append(tuple(args[1][0].shape))
+            super().__init__(*args)
+
+    graph.CapturedStep = Counted
+
+    def same(got, want, what):
+        for name, g, w in zip(want._fields, got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w),
+                  f"{what}: field {name}")
 
     spec = main_spec()
     rng = np.random.default_rng(SEED)  # phase 3's two batches
@@ -485,18 +525,30 @@ def dp_rank(device):
             .to(device) for _ in range(2)]
     lengths = torch.full((B,), L, dtype=torch.int32, device=device)
     mesh = make_mesh()
+    group = mesh.get_group("data")
     step = make_dp_pipeline(spec, mesh, device)
+    check(make_dp_pipeline(spec, mesh, device) is step, "make_dp_pipeline is not cached")
     build.launches.clear()
-    res = step(pool[0], lengths)
+    outs = [step(pool[i % 2], lengths) for i in range(3)]
     ran = rank_launches()
-    want = kminmers_batch(pool[0], lengths, spec)
-    for name, got, w in zip(want._fields, res.batch, want):
-        check(got.shape == w.shape and got.dtype == w.dtype and torch.equal(got, w),
-              f"DP step field {name} differs from kminmers_batch")
+    check(len(captures) == 1 and len(step.compiled.graphs) == 1,
+          f"the DP step captured {captures}")
+    for i, res in enumerate(outs):
+        want = kminmers_batch(pool[i % 2], lengths, spec)
+        plain = dp_step(pool[i % 2], lengths, spec, group)
+        same(res.batch, want, f"DP call {i} vs kminmers_batch")
+        same(res.batch, plain.batch, f"DP call {i} vs dp_step")
+        nk = want.n_kminmers.cpu().numpy().astype(np.int64)
+        excl = np.cumsum(nk) - nk
+        for name, got, w in (("global_offset", res.global_offset, plain.global_offset),
+                             ("total", res.total, plain.total), ("lost", res.lost, plain.lost)):
+            check(got.shape == w.shape and got.dtype == w.dtype and torch.equal(got, w),
+                  f"DP call {i}: {name} differs from dp_step")
+        check(int(res.lost) == 0 and int(res.total) == nk.sum()
+              and np.array_equal(res.global_offset.cpu().numpy(), excl), f"DP call {i} offsets")
+    res, want = outs[0], kminmers_batch(pool[0], lengths, spec)
     nk = want.n_kminmers.cpu().numpy().astype(np.int64)
     excl = np.cumsum(nk) - nk
-    check(int(res.lost) == 0 and int(res.total) == nk.sum()
-          and np.array_equal(res.global_offset.cpu().numpy(), excl), "DP offsets")
     mk = int(nk.max())
     words = [t[:, :mk].cpu().numpy().view(np.uint32).astype(np.uint64)
              for t in (want.hash_hi, want.hash_lo)]
@@ -506,10 +558,76 @@ def dp_rank(device):
     for key in ref:
         check(merged[key].dtype == ref[key].dtype and np.array_equal(merged[key], ref[key]),
               f"merge_ordered column {key} differs from stitch_records")
-    times = [time_ms(lambda i, f=f: f(pool[i % 2], lengths), 20)
-             for f in (lambda c, n: kminmer_pipeline(c, n, spec), step, step,
-                       lambda c, n: kminmer_pipeline(c, n, spec))]
-    return ran, times, int(nk.sum())
+
+    # Phase 5's rescue cells through the compiled step.
+    small = pool[0][:4, : 1 << 16].contiguous()
+    small_len = torch.full((4,), 1 << 16, dtype=torch.int32, device=device)
+    rescued = {}
+    build.launches.clear()
+    for route, rs in (
+        ("fused", PipelineSpec(l=11, k=3, density=0.05, mode="hpcsimd", max_minimizers=64,
+                               tile_cap=8)),
+        ("general", PipelineSpec(l=301, k=3, density=0.05, mode="hpc", max_minimizers=64)),
+    ):
+        specs = [rs]
+        while True:
+            res = make_dp_pipeline(specs[-1], mesh, device)(small, small_len)
+            if int(res.lost) == 0:  # read after the replay
+                break
+            check(len(specs) < 4, f"the {route} rescue did not end")
+            specs.append(rescue_spec(specs[-1], int(res.batch.n_minimizers_raw.max())))
+        rescued[route] = (rs, specs, res)
+    ran_rest = rank_launches()
+    n_dp = len(captures)
+    rescues = {}
+    for route, (rs, specs, res) in rescued.items():
+        check(len(specs) >= 2, f"the {route} rescue never retried")
+        same(res.batch, kminmers_batch(small, small_len, rs), f"{route} rescue vs kminmers_batch")
+        plain = dp_step(small, small_len, specs[-1], group)
+        same(res.batch, plain.batch, f"{route} rescue vs dp_step")
+        check(torch.equal(res.global_offset, plain.global_offset) and int(res.total)
+              == int(plain.total), f"{route} rescue offsets")
+        rescues[route] = (len(specs) - 1, int(res.batch.n_minimizers.sum()))
+
+    # The compiled sharded step on a (1, 1) mesh, below K1's 2^28 cap.
+    read = np.load(long_path, mmap_mode="r")[: 1 << 26]
+    n = len(read)
+    x = torch.from_numpy(np.array(read)[None, :]).to(device)
+    nl = torch.tensor([n], dtype=torch.int32, device=device)
+    smesh = make_mesh(1, 1)
+    sstep = seqshard.make_seq_pipeline(PipelineSpec(l=31, k=5, density=0.01,
+                                                    mode="hpcsimd"), smesh, device)
+    build.launches.clear()
+    n_before = len(captures)
+    segs = [sstep(x, nl) for _ in range(2)]
+    n_sharded = len(captures) - n_before
+    for name, c in rank_launches().items():
+        ran_rest[name] += c
+    check(len(sstep.compiled.graphs) == 1, "the sharded step's graphs")
+    check(n_sharded == 1, f"the sharded step captured {n_sharded} times")
+    captured = {"DP main": 1, "DP rescues": n_dp - 1, "sharded": n_sharded}
+    plain = seqshard.seq_step(x, nl, sstep.spec, smesh.get_group("seq"))
+    for i, seg in enumerate(segs):
+        same(seg, plain, f"sharded call {i} vs seq_step")
+    st = seqshard.stitch_segments(seqshard.join_segments([plain], 1))
+    nkl = int(st.n_kminmers[0])
+    hi, lo = (a[0, :nkl].astype(np.uint64) for a in (st.hash_hi, st.hash_lo))
+    got = {"hash": (hi << np.uint64(32)) | lo, "start": st.start[0, :nkl].astype(np.int64),
+           "end": st.end[0, :nkl].astype(np.int64), "offset": np.arange(nkl, dtype=np.int64),
+           "rev": st.rev[0, :nkl]}
+    want_l = kminmers_long(np.ascontiguousarray(read), device=device, l=31, k=5, density=0.01,
+                           mode="hpcsimd")
+    for key in want_l:
+        check(got[key].dtype == want_l[key].dtype and np.array_equal(got[key], want_l[key]),
+              f"the sharded step's {key} differs from kminmers_long")
+    del segs, plain, x
+
+    graph_step = api._cached_pipeline(spec)
+    turns = [("make_pipeline", graph_step), ("DP step", step),
+             ("dp_step", lambda c, n: dp_step(c, n, spec, group)), ("DP step", step),
+             ("make_pipeline", graph_step)]
+    times = [(what, time_ms(lambda i, f=f: f(pool[i % 2], lengths), 20)) for what, f in turns]
+    return (ran, ran_rest, captured, times, int(nk.sum()), rescues, nkl)
 
 
 def _timed_step(step, x, n):
@@ -662,13 +780,24 @@ def parallel_phase(dev, card, long_recs, long_path, file_path, file_recs) -> dic
 
     # (a)
     t0 = time.perf_counter()
-    (ran, times, n_km), = run_world(dp_rank, 1, "nccl", dev)
-    count(ran, "(a) DP step")
-    log(f"phase 12 (a) DP step [{B}, {L}] hpcsimd, NCCL world of 1 on {card}: all 12 fields "
-        f"equal kminmers_batch, merge_ordered equals stitch_records ({n_km} k-min-mers); "
-        f"CUDA events, in turns: kminmer_pipeline {times[0]:.4f} ms, DP step {times[1]:.4f} "
-        f"ms, DP step {times[2]:.4f} ms, kminmer_pipeline {times[3]:.4f} ms "
-        f"(world {time.perf_counter() - t0:.2f} s)")
+    (ran, ran_rest, captured, times, n_km, rescues, n_long), = run_world(
+        dp_rank, 1, "nccl", dev, str(long_path))
+    count(ran, "(a) compiled DP step, 3 calls (the first answered by the capture's warm-up)")
+    log(f"phase 12 (a) rescues and the sharded step, launches: {ran_rest}")
+    for c in ("fused_scan", "tile_carries", "slot_compact", "assemble", "hpc_compact",
+              "general_scan"):
+        check(ran_rest[c] > 0, f"phase 12 (a) never launched {c} outside the main DP calls")
+    for c in ran_rest:
+        launches[c] += ran_rest[c]
+    log(f"phase 12 (a) compiled DP step [{B}, {L}] hpcsimd, NCCL world of 1 on {card}: 3 calls, "
+        f"one capture; each call's 12 fields, global_offset, total and lost equal dp_step's and "
+        f"kminmers_batch's; merge_ordered equals stitch_records ({n_km} k-min-mers); rescues "
+        "through the compiled step, lost read after each replay (retries, minimizers): "
+        f"{rescues}, each equal to kminmers_batch and dp_step; the compiled sharded step on a "
+        f"(1, 1) mesh, 64 Mbp of phase 10's read, twice: equal to seq_step, {n_long} records "
+        f"equal to kminmers_long; captures {captured}; CUDA events, in turns: "
+        + ", ".join(f"{what} {t:.4f} ms" for what, t in times)
+        + f" (world {time.perf_counter() - t0:.2f} s)")
 
     # (b), (c), (d): phase 10's read over S = 1, 2 in a world of 2 and over
     # S = 4 in a world of 4; the (2, 2) mesh and the file in those worlds.
@@ -800,6 +929,54 @@ def burnin_phase(dev) -> dict:
     return ran
 
 
+def graph_memory(dev, pool):
+    """The device memory the captured graphs hold: ``memory_reserved``
+    after phase 13 (its ~100 keys), then over a ``kminmers_batch`` sweep of
+    one spec over 120 shapes [2, 4096 i], every 20 shapes, as it is and
+    after ``empty_cache``, once with the cap of ``graph.MAX_GRAPHS``
+    captured steps a compiled pipeline and once with no cap.  The sweep's
+    launches are not counted: it drives no path the counts read."""
+    import torch
+
+    from rust_seq2kminmers_torch import api
+    from rust_seq2kminmers_torch.api import kminmers_batch
+    from rust_seq2kminmers_torch.ops.cuda import build, graph
+    from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
+
+    def mib():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_reserved(dev) / 2**20
+
+    log(f"graph memory after phase 13: {mib():.1f} MiB reserved; the pipelines' cache "
+        f"{api._cached_pipeline.cache_info()}")
+    spec = PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd")
+    cap = graph.MAX_GRAPHS
+    t0 = time.perf_counter()
+    for what, limit in (("no cap", 1 << 30), (f"cap {cap}", cap)):
+        api._cached_pipeline.cache_clear()
+        torch.cuda.empty_cache()
+        graph.MAX_GRAPHS = limit
+        try:
+            seen = [f"0: {mib():.1f}"]
+            for i in range(1, 121):
+                kminmers_batch(pool[0][:2, : 4096 * i].contiguous(),
+                               torch.full((2,), 4096 * i, dtype=torch.int32, device=dev), spec)
+                if i % 20 == 0:
+                    seen.append(f"{i}: {mib():.1f}")
+            kept = len(api._cached_pipeline(spec).graphs)
+            torch.cuda.empty_cache()
+            seen.append(f"emptied: {mib():.1f}")
+        finally:
+            graph.MAX_GRAPHS = cap
+        check(kept == min(limit, 120), f"graph memory, {what}: {kept} graphs kept")
+        log(f"graph memory, kminmers_batch over 120 shapes [2, 4096 i], {what}: {kept} graphs "
+            "kept; MiB reserved after i shapes " + ", ".join(seen))
+    api._cached_pipeline.cache_clear()
+    torch.cuda.empty_cache()
+    build.launches.clear()
+    log(f"graph memory sweeps: {time.perf_counter() - t0:.2f} s; {mib():.1f} MiB reserved after")
+
+
 def suite_phase(dev) -> dict:
     """Phase 14, the per-stage suite on the card with the counters at 0
     just before its device cases -> their launches.  Then, apart from the
@@ -864,6 +1041,7 @@ def graph_phase(dev, card, pool, lengths, path_kernels, small, small_len) -> dic
     from rust_seq2kminmers_torch import api
     from rust_seq2kminmers_torch.ops import pipeline
     from rust_seq2kminmers_torch.ops.cuda import build
+    from rust_seq2kminmers_torch.ops.cuda import graph
     from rust_seq2kminmers_torch.ops.cuda.graph import CapturedStep
     from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
     from rust_seq2kminmers_torch.scripts import bench as twin
@@ -921,17 +1099,17 @@ def graph_phase(dev, card, pool, lengths, path_kernels, small, small_len) -> dic
                       tile_cap=8)
     api.precompile_rescue(rs, tuple(small.shape), dev)
     api._cached_pipeline(rs).capture(small, small_len)
-    retries, real = [], (api.rescue_spec, pipeline.CapturedStep)
+    retries, real = [], (api.rescue_spec, graph.CapturedStep)
 
     def no_capture(*args):
         raise RuntimeError("FAILED: a capture after precompile_rescue")
 
     api.rescue_spec = lambda s_, n=0: retries.append(n) or real[0](s_, n)
-    pipeline.CapturedStep = no_capture
+    graph.CapturedStep = no_capture
     try:
         out = api.kminmers_batch(small, small_len, rs)
     finally:
-        api.rescue_spec, pipeline.CapturedStep = real
+        api.rescue_spec, graph.CapturedStep = real
     counted()
     check(len(retries) == 1 and real[0](rs, retries[0]) == real[0](rs),
           f"phase 15 rescue: retries {retries}")
@@ -1807,6 +1985,7 @@ def main():
         if name in launches:
             launches[name] += n
     log(f"phase 13: {time.perf_counter() - t0:.2f} s")
+    graph_memory(dev, pool)
 
     # 14. the per-stage suite, counters at 0 just before its device cases
     for name, n in suite_phase(dev).items():

@@ -34,17 +34,34 @@ A capture that fails raises; nothing falls back to the eager step.  The
 capture keeps the default ``capture_error_mode="global"``: no
 other thread may make an unsafe CUDA call (a pinned allocation, a
 synchronising copy) while it runs, so a caller with worker threads that
-touch CUDA captures before they start.  A ``CapturedStep`` is not
-thread-safe; its owner serialises calls.
+touch CUDA captures before they start.  The event queries of NCCL's
+watchdog thread are not such calls on CUDA, so the collectives' steps
+capture in this mode too.  A ``CapturedStep`` is not thread-safe; its
+owner serialises calls.
+
+``CompiledStep(fn)`` keys its captured steps as ``jax.jit`` keys its
+executables, by the inputs' shapes and dtypes, and answers a key's first
+call with the warm-up's outputs: the warm-up is that call's run of
+``fn``, the capture only records, and each later call replays.  So every
+call runs ``fn``'s work exactly once, and a step whose ``fn`` holds NCCL
+collectives issues them once a call on every rank, whichever rank
+captures a new key (``parallel/driver.py``, ``parallel/seqshard.py``).
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import Callable, Sequence
 
 import torch
 
 from . import build
+
+# Captured steps a CompiledStep keeps; past it the least recently used key
+# goes, with its graph's memory pool.  chip_smoke.py's phases meet at most
+# 6 keys a spec and the file runner on its ~0.5 Gbp cell at most 5 a spec.
+MAX_GRAPHS = 16
 
 
 class CapturedStep:
@@ -70,8 +87,11 @@ class CapturedStep:
             side = torch.cuda.Stream(device)
             side.wait_stream(caller)
             with torch.cuda.stream(side):
-                fn(*self._inputs)
+                warm = tuple(fn(*self._inputs))
             caller.wait_stream(side)
+            for t in warm:  # read on the caller's stream, allocated on the side's
+                t.record_stream(caller)
+            self._warm = warm
             self.graph = torch.cuda.CUDAGraph()
             # The capture ``torch.cuda.graph`` makes, on the warm-up's stream,
             # without what that context does first: synchronise the device
@@ -85,6 +105,12 @@ class CapturedStep:
                     self.graph.capture_end()
         self._handoff = Handoff(outs)
         self._stream = caller
+
+    def take_warmup(self) -> tuple:
+        """The warm-up's outputs, ``fn``'s answer for the inputs the step
+        was made with; the first call returns them, later ones None."""
+        warm, self._warm = self._warm, None
+        return warm
 
     def __call__(self, *inputs: torch.Tensor) -> tuple:
         if len(inputs) != len(self._inputs):
@@ -103,6 +129,46 @@ class CapturedStep:
         self.graph.replay()
         build.launches.update(self.launches)
         return self._handoff()
+
+
+class CompiledStep:
+    """``fn(*inputs) -> a sequence of tensors`` compiled for CUDA inputs:
+    one ``CapturedStep`` per key (device, each input's shape and dtype),
+    made on the key's first call, which it answers with the warm-up's
+    outputs, or ahead of that call by ``capture``.  Later calls replay.
+    At most ``MAX_GRAPHS`` keys are kept, the least recently used dropped
+    first.  Calls are serialised by a lock.  ``graphs`` holds the
+    captured steps, oldest first; dropping the object frees their memory
+    pools."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def __call__(self, *inputs: torch.Tensor) -> tuple:
+        with self._lock:
+            step, warm = self._step(inputs)
+            return tuple(warm) if warm is not None else step(*inputs)
+
+    def capture(self, *inputs: torch.Tensor) -> None:
+        """Capture the key of these CUDA inputs now, unless it exists: ahead
+        of a run whose threads must not meet a capture.  Runs ``fn`` once,
+        as the warm-up."""
+        with self._lock:
+            self._step(inputs)
+
+    def _step(self, inputs) -> tuple:
+        """-> (the key's step, the warm-up's outputs if it was made now)."""
+        key = (inputs[0].device, *((tuple(x.shape), x.dtype) for x in inputs))
+        step = self.graphs.get(key)
+        if step is not None:
+            self.graphs.move_to_end(key)
+            return step, None
+        step = self.graphs[key] = CapturedStep(self.fn, inputs, inputs[0].device)
+        while len(self.graphs) > MAX_GRAPHS:
+            self.graphs.popitem(last=False)
+        return step, step.take_warmup()
 
 
 class Handoff:

@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -68,7 +67,7 @@ from .cuda.fused_scan import (
     fused_scan_plain,
 )
 from .cuda.general_scan import general_minimizers, general_minimizers_plain
-from .cuda.graph import CapturedStep
+from .cuda.graph import CompiledStep
 from .cuda.masked_compact import hpc_compact
 from .cuda.slot_compact import slot_compact_counts, slot_compact_counts_plain
 from .hpc import hpc_compress_packed
@@ -259,15 +258,16 @@ def _general_minimizers(codes, lengths, spec, stages, m_cap):
     )
 
 
-class CompiledPipeline:
+class CompiledPipeline(CompiledStep):
     """``make_pipeline(spec)``: ``fn(codes, lengths) -> KminmerBatch``, the
     counterpart of the reference's jitted pipeline.
 
     On CUDA tensors each key (device, codes shape and dtype, lengths
     shape) gets one captured graph of ``kminmer_pipeline``
-    (``ops/cuda/graph.py``), captured on the key's first call, as jit
-    compiles on a shape's first call, and replayed on every call;
-    ``capture`` captures a key ahead of its first call.  ``lengths`` of
+    (``ops/cuda/graph.py``'s ``CompiledStep``), captured on the key's
+    first call, as jit compiles on a shape's first call, which the
+    capture's warm-up answers; every later call replays it.  ``capture``
+    captures a key ahead of its first call.  ``lengths`` of
     another integer dtype are cast to int32 first, as the reference's
     caller does.  A call reads its inputs when it is called and returns a
     new batch that later calls leave alone; its 12 fields are bit for bit
@@ -277,33 +277,18 @@ class CompiledPipeline:
     pools."""
 
     def __init__(self, spec: PipelineSpec):
+        super().__init__(functools.partial(kminmer_pipeline, spec=spec))
         self.spec = spec
-        self.graphs: dict = {}
-        self._lock = threading.Lock()
 
     def __call__(self, codes: torch.Tensor, lengths: torch.Tensor) -> KminmerBatch:
         if codes.device.type != "cuda":
             return kminmer_pipeline(codes, lengths, self.spec)
-        if lengths.dtype != torch.int32:
-            lengths = lengths.to(torch.int32)
-        with self._lock:
-            return KminmerBatch(*self._step(codes, lengths)(codes, lengths))
+        return KminmerBatch(*super().__call__(codes, lengths.to(torch.int32)))
 
     def capture(self, codes: torch.Tensor, lengths: torch.Tensor) -> None:
         """Capture the graph for the key of these CUDA inputs now, unless it
         exists: ahead of a run whose threads must not meet a capture."""
-        with self._lock:
-            self._step(codes, lengths.to(torch.int32))
-
-    def _step(self, codes, lengths) -> CapturedStep:
-        key = (codes.device, tuple(codes.shape), codes.dtype, tuple(lengths.shape))
-        step = self.graphs.get(key)
-        if step is None:
-            step = self.graphs[key] = CapturedStep(
-                functools.partial(kminmer_pipeline, spec=self.spec), (codes, lengths),
-                codes.device,
-            )
-        return step
+        super().capture(codes, lengths.to(torch.int32))
 
 
 def make_pipeline(spec: PipelineSpec) -> CompiledPipeline:

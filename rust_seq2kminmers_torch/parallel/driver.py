@@ -13,6 +13,7 @@ all-reduce of the overflow flag.  The records never move between ranks.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence, Union
 
 import numpy as np
@@ -20,8 +21,8 @@ import torch
 import torch.distributed as dist
 
 from ..api import _cached_pipeline, _device
-from ..ops.pipeline import KminmerBatch, PipelineSpec
-from .mesh import all_gather, all_reduce_sum
+from ..ops.pipeline import KminmerBatch, PipelineSpec, kminmer_pipeline
+from .mesh import all_gather, all_reduce_sum, nccl_compiled_step
 
 
 class ShardedKminmers(NamedTuple):
@@ -33,38 +34,92 @@ class ShardedKminmers(NamedTuple):
     lost: torch.Tensor  # int32[]: data ranks where a read lost minimizers, every rank
 
 
-def make_dp_pipeline(spec: PipelineSpec, mesh, device="cuda"):
+def _offsets(out: KminmerBatch, group) -> ShardedKminmers:
+    """A rank's batch with its reads' global offsets, the batch's total
+    and the loss flag: one all-gather of the counts, one all-reduce."""
+    n_data, rank = dist.get_world_size(group), dist.get_rank(group)
+    counts = out.n_kminmers
+    b_local = counts.shape[0]
+    all_counts = all_gather(counts, group).view(n_data * b_local)
+    excl = torch.cumsum(all_counts, 0, dtype=torch.int32) - all_counts
+    short = (out.n_minimizers < out.n_minimizers_raw).any().to(torch.int32)
+    return ShardedKminmers(
+        batch=out,
+        global_offset=excl[rank * b_local : (rank + 1) * b_local],
+        total=all_counts.sum(dtype=torch.int32),
+        lost=all_reduce_sum(short, group),
+    )
+
+
+def dp_step(codes: torch.Tensor, lengths: torch.Tensor, spec: PipelineSpec,
+            group) -> ShardedKminmers:
+    """The data-parallel step as a plain function of tensors, the
+    counterpart of ``kminmer_pipeline``: this rank's rows (codes uint8[B/n,
+    L], lengths int32[B/n]) through ``kminmer_pipeline``, then the counts'
+    all-gather and the loss flag's all-reduce over ``group``, each into a
+    tensor of fixed shape.  Every rank of the group calls it together."""
+    return _offsets(kminmer_pipeline(codes, lengths, spec), group)
+
+
+class DataParallelPipeline:
+    """``make_dp_pipeline``'s step for one (spec, group, device):
+    ``step(codes, lengths) -> ShardedKminmers``.
+
+    Over NCCL with a CUDA device the step is compiled as the reference
+    jits it, whole: one captured CUDA graph of ``dp_step`` per (device,
+    codes shape and dtype, lengths shape), the NCCL all-gather and
+    all-reduce inside it (``ops/cuda/graph.py``'s ``CompiledStep``).  A
+    key's first call runs ``dp_step`` eagerly as the capture's warm-up
+    and returns its answer, and the capture only records; every later
+    call replays.  So each call issues exactly one all-gather and one
+    all-reduce on every rank, whichever rank captures a new key (ranks pad
+    their rows and size their rescue each on its own).  A capture or a
+    replay that fails raises.
+
+    Over gloo the collectives go through the host and cannot be
+    captured: the step is the spec's compiled pipeline
+    (``api._cached_pipeline``, a captured graph on the card), then the two
+    collectives, eagerly.  Several gloo ranks can share one GPU, which
+    NCCL refuses; the reference has no counterpart of that."""
+
+    def __init__(self, spec: PipelineSpec, group, device: torch.device):
+        self.spec, self.group, self.device = spec, group, device
+        self.compiled = None
+        if dist.get_backend(group) == "nccl" and device.type == "cuda":
+            self.compiled = nccl_compiled_step(self._flat)
+
+    def _flat(self, codes, lengths) -> tuple:
+        res = dp_step(codes, lengths, self.spec, self.group)
+        return (*res.batch, *res[1:])
+
+    def __call__(self, codes, lengths) -> ShardedKminmers:
+        codes = torch.as_tensor(codes).to(self.device).contiguous()
+        lengths = torch.as_tensor(lengths).to(self.device, torch.int32)
+        if self.compiled is None:
+            return _offsets(_cached_pipeline(self.spec)(codes, lengths), self.group)
+        out = self.compiled(codes, lengths)
+        return ShardedKminmers(KminmerBatch(*out[:12]), *out[12:])
+
+
+@functools.lru_cache(maxsize=64)
+def _dp_pipeline(spec: PipelineSpec, group, device: torch.device) -> DataParallelPipeline:
+    """The step of a (spec, group, device), shared by every caller: the
+    file runner asks for it on every batch and every retry."""
+    return DataParallelPipeline(spec, group, device)
+
+
+def make_dp_pipeline(spec: PipelineSpec, mesh, device="cuda") -> DataParallelPipeline:
     """-> step(codes, lengths) -> ShardedKminmers, where codes uint8[B/n_data,
     L] and lengths int32[B/n_data] are this rank's rows (``row_sharding``).
 
     Every rank of the mesh's data dimension calls the step together; the
     counts go through an all-gather over 'data' (4 bytes a read), and
     ``lost`` is the same on every rank, so a retry (``multihost``) stays
-    collective.  The reference jits the whole step; here the local
-    pipeline is the spec's compiled one (``api._cached_pipeline``, a
-    captured graph on the card) and the two collectives run after it,
-    outside the graph: gloo's go through the host."""
-    device = _device(device)
-    pipe = _cached_pipeline(spec)
-    group = mesh.get_group("data")
-    n_data, rank = dist.get_world_size(group), dist.get_rank(group)
-
-    def step(codes, lengths) -> ShardedKminmers:
-        out = pipe(torch.as_tensor(codes).to(device).contiguous(),
-                   torch.as_tensor(lengths).to(device, torch.int32))
-        counts = out.n_kminmers
-        b_local = counts.shape[0]
-        all_counts = all_gather(counts, group).view(n_data * b_local)
-        excl = torch.cumsum(all_counts, 0, dtype=torch.int32) - all_counts
-        short = (out.n_minimizers < out.n_minimizers_raw).any().to(torch.int32)
-        return ShardedKminmers(
-            batch=out,
-            global_offset=excl[rank * b_local : (rank + 1) * b_local],
-            total=all_counts.sum(dtype=torch.int32),
-            lost=all_reduce_sum(short, group),
-        )
-
-    return step
+    collective.  The step is cached per (spec, group, device)
+    (``DataParallelPipeline``: a captured graph with the collectives
+    inside over NCCL, the collectives after the pipeline's graph over
+    gloo)."""
+    return _dp_pipeline(spec, mesh.get_group("data"), _device(device))
 
 
 def stitch_records(

@@ -27,6 +27,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from .mesh import release_graphs
+
 _POLL_S = 0.2
 _TIMEOUT_S = 900.0  # a world that runs longer is ended
 
@@ -40,6 +42,7 @@ def _rank_main(rank, world_size, backend, device, init_method, results, fn, args
             device = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(device)
         result = fn(device, *args)
+        release_graphs()
         dist.barrier()
         dist.destroy_process_group()
         results.put((rank, True, result))

@@ -14,15 +14,27 @@ for gloo); the device the kernels run on is the pipelines' own argument.
 On a gloo group, ``all_gather`` and ``all_reduce`` take a CUDA tensor
 through the host: the collectives carry only small counts and tails, so
 several gloo ranks can share one GPU, which NCCL refuses.
+
+Over NCCL the compiled steps hold the collectives inside CUDA graphs
+(``nccl_compiled_step``); NCCL does not let a communicator go while such
+a graph lives, so ``release_graphs`` comes before
+``destroy_process_group`` (``launch.run_world`` and the file runner's
+command line call it).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import weakref
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from ..ops.cuda.graph import CompiledStep
+
+# The compiled steps whose graphs hold this process's NCCL collectives.
+_holding_nccl: "weakref.WeakSet[CompiledStep]" = weakref.WeakSet()
 
 
 def make_mesh(n_data: Optional[int] = None, n_seq: int = 1) -> DeviceMesh:
@@ -64,13 +76,19 @@ def _via_host(t: torch.Tensor, group) -> bool:
     return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
 
+# The single-tensor all-gather: ``all_gather_single`` where torch has it,
+# ``all_gather_into_tensor`` (the same call, deprecated since) before.
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """[group size, *t.shape]: every rank's t, in group rank order, on
-    t's device."""
+    t's device, gathered into one tensor of fixed shape (so that a CUDA
+    graph can hold the NCCL all-gather)."""
     src = (t.cpu() if _via_host(t, group) else t).contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return torch.stack(parts).to(t.device)
+    out = src.new_empty((dist.get_world_size(group) * src.numel(),))
+    _all_gather_single(out, src.view(-1), group=group)
+    return out.view(-1, *src.shape).to(t.device)
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -78,3 +96,23 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     out = (t.cpu() if _via_host(t, group) else t).clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(t.device)
+
+
+def nccl_compiled_step(fn: Callable) -> CompiledStep:
+    """A ``CompiledStep`` of ``fn``, whose graphs will hold NCCL
+    collectives: ``release_graphs`` drops them."""
+    step = CompiledStep(fn)
+    _holding_nccl.add(step)
+    return step
+
+
+def release_graphs() -> None:
+    """Drop every captured graph that holds NCCL collectives (the compiled
+    DP and sharded steps' graphs; each captures again on its next call).
+    NCCL reclaims a communicator's resources only once the graphs that
+    captured its collectives are gone, so over two ranks or more
+    ``destroy_process_group`` waits for them: call this first."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for step in list(_holding_nccl):
+        step.graphs.clear()

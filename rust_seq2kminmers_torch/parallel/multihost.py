@@ -224,6 +224,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..ops.pipeline import PipelineSpec
+    from .mesh import release_graphs
 
     device = args.device
     backend = args.backend or _default_backend(device)
@@ -242,6 +243,7 @@ def main(argv=None):
     total = sum(c.batch_total for c in chunks)
     print(f"[rank {dist.get_rank()}] done in {dt:.3f}s: {local} local / {total} total "
           f"k-min-mers over {len(chunks)} batches")
+    release_graphs()
     dist.destroy_process_group()
     return 0
 

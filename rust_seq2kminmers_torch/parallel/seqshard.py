@@ -42,7 +42,7 @@ from ..ops.cuda.slot_compact import slot_compact_counts
 from ..ops.long_read import HPC_LIMIT
 from ..ops.pipeline import KminmerBatch, PipelineSpec
 from .driver import host
-from .mesh import all_gather
+from .mesh import all_gather, nccl_compiled_step
 
 BLOCK = 1024  # a shard's length is a multiple of this, as the reference's kernel blocks
 # A carried element is packed (pos << 3) | code in int32, pos relative to
@@ -99,7 +99,162 @@ def _splice(tails: torch.Tensor, counts: torch.Tensor, s: int):
     return torch.where(valid[:, :, None, :], vals, 0).sum(0), valid.any(0)
 
 
-def make_seq_pipeline(spec: PipelineSpec, mesh, device="cuda"):
+def _check_shape(C: int, S: int) -> None:
+    """The shard width's rules, raised before any step runs."""
+    L = S * C
+    if C % BLOCK:
+        raise ValueError(f"padded length {L} must be a multiple of {S * BLOCK} "
+                         f"(seq={S} shards x {BLOCK}-base blocks)")
+    if L >= 1 << 31:
+        raise ValueError(f"padded length {L} does not fit int32 positions")
+
+
+def _raise_far(far, s: int) -> None:
+    """The carry-reach guard: raise if ``far`` (a bool tensor, or None
+    where the shard's offset cannot reach) is set."""
+    if far is not None and bool(far):
+        raise ValueError(f"a carried element lies 2^28 or more bases before shard {s}")
+
+
+def _seq_body(codes, lengths, spec: PipelineSpec, group) -> tuple:
+    """The step without its host checks -> (this rank's KminmerSegments,
+    the carry-reach flag: a bool tensor where the shard's offset is 2^28
+    or more, else None).  No host sync: a CUDA graph can hold it."""
+    S, s = dist.get_world_size(group), dist.get_rank(group)
+    device = codes.device
+    l, k, t = spec.l, spec.k, spec.k - 1
+    wide = spec.hash_width == 64
+    shards = torch.arange(S, device=device)
+    Bl, C = codes.shape
+    cap = max(-(-spec.capacity_for(S * C) // S), k)
+    off = s * C
+    local_len = (lengths.to(torch.int64) - off).clamp(0, C).to(torch.int32)
+    cols = torch.arange(cap, device=device)[None, :]
+
+    # 1. Base space: the shard's kept count and last l elements (K1's
+    # passes 1-2), gathered; this shard's first rank and carry.
+    base, pending = tile_carries(codes, local_len, l, TILE, spec.is_hpc)
+    mine = torch.cat([base[:, -1:], pending[:, -1]], dim=1)
+    got = all_gather(mine, group).to(torch.int64)  # [S, Bl, 1 + l]
+    counts = got[:, :, 0]
+    # Shard j's positions are relative to its own origin; the carry's
+    # are relative to this shard's: on (pos << 3) | code, a subtraction.
+    tails = got[:, :, None, 1:] - (((s - shards) * C) << 3)[:, None, None, None]
+    carry, real = _splice(tails, counts, s)
+    carry = carry[:, 0]
+    far = ((carry < -(_CARRY_REACH << 3)) & real).any() if off >= _CARRY_REACH else None
+    base0 = counts[:s].sum(dim=0).to(torch.int32)
+    none = torch.full_like(lengths, -1)
+    limit = torch.where(lengths > l, torch.full_like(lengths, HPC_LIMIT) if spec.is_hpc
+                        else lengths - l, none)
+
+    # K1 from the carry, K2 into the shard's capacity, positions global.
+    st, en, hs, tile_counts = fused_minimizer_scan(
+        codes, local_len, limit, l, spec.bound, spec.strict_threshold, spec.is_hpc,
+        spec.mode == "hpc", TILE, spec.cap_per_tile(TILE), spec.hash_width,
+        spec.variant, base0=base0, carry0=carry.to(torch.int32),
+    )
+    (mst, men, mhs), n_min, n_raw = slot_compact_counts(st, en, hs, tile_counts, cap)
+    hi, lo = mhs if wide else (torch.zeros_like(mhs), mhs)
+    ok = cols < n_min[:, None]
+    mst = torch.where(ok, mst + off, 0)
+    men = torch.where(ok, men + off, 0)
+
+    # 2. Minimizer space: the k-1 minimizers before the shard, then K3
+    # over them and the shard's own stream.  Window w ends at local
+    # minimizer w; it is whole once the read's stream before it
+    # reaches back k-1, i.e. from w = j0 on.
+    n_buf, j0 = n_min, None
+    buf = [lo, hi, mst, men]
+    if t:
+        idx = (n_min[:, None] - t + torch.arange(t, device=device)).clamp(min=0)
+        words = [mst, lo] + ([hi] if wide else [])
+        mine = torch.cat([n_min[:, None]] + [torch.gather(c, 1, idx) for c in words], 1)
+        got = all_gather(mine, group).to(torch.int64)  # [S, Bl, 1 + t * words]
+        n_all = got[:, :, 0]
+        halo, _ = _splice(got[:, :, 1:].reshape(S, Bl, len(words), t), n_all, s)
+        halo = halo.to(torch.int32)
+        h_start, h_lo = halo[:, 0], halo[:, 1]
+        h_hi = halo[:, 2] if wide else torch.zeros_like(h_lo)
+        zero = torch.zeros_like(h_lo)
+        buf = [torch.cat(p, dim=1) for p in ((h_lo, lo), (h_hi, hi), (h_start, mst),
+                                             (zero, men))]
+        n_buf = n_min + t
+        j0 = (t - n_all[:s].sum(dim=0)).clamp(min=0).to(torch.int32)
+    hash_hi, hash_lo, start, end, rev, n_km = assemble_masked_cuda(
+        buf[0], k, spec.hash_width, buf[1] if wide else None, n_buf, buf[2], buf[3]
+    )
+    if j0 is None:
+        j0 = torch.zeros_like(n_min)
+    else:
+        keep = cols >= j0[:, None]
+        hash_hi, hash_lo, start, end = (torch.where(keep, x, 0)
+                                        for x in (hash_hi, hash_lo, start, end))
+        rev = rev & keep
+        n_km = (n_min - j0).clamp(min=0)
+    seg = KminmerSegments(
+        hash_hi=hash_hi, hash_lo=hash_lo, start=start, end=end, rev=rev,
+        n_kminmers_seg=n_km[:, None], km_off_seg=j0[:, None],
+        min_hash=lo, min_hash_hi=hi, min_start=mst, min_end=men,
+        n_minimizers_seg=n_min[:, None], n_minimizers_raw_seg=n_raw[:, None],
+    )
+    return seg, far
+
+
+def seq_step(codes: torch.Tensor, lengths: torch.Tensor, spec: PipelineSpec,
+             group) -> KminmerSegments:
+    """The sequence-sharded step as a plain function of tensors: this
+    rank's block codes uint8[B/n_data, C] of codes[B, S * C] and the reads'
+    whole lengths int32[B/n_data] -> this rank's KminmerSegments.  Every
+    rank of ``group`` (the mesh's 'seq' dimension) calls it together; it
+    raises ValueError for a shard width that is not a multiple of 1024 or
+    a padded length of 2^31 or more, and, after both all-gathers, for a
+    carried element that lies 2^28 or more bases before the shard."""
+    _check_shape(codes.shape[1], dist.get_world_size(group))
+    seg, far = _seq_body(codes, lengths, spec, group)
+    _raise_far(far, dist.get_rank(group))
+    return seg
+
+
+class SequenceShardedPipeline:
+    """``make_seq_pipeline``'s step: ``step(codes, lengths) -> this rank's
+    KminmerSegments``.
+
+    Over NCCL with a CUDA device it is compiled as the reference jits it,
+    whole: one captured CUDA graph of the step per (device, codes shape and
+    dtype, lengths shape), both all-gathers inside it
+    (``ops/cuda/graph.py``'s ``CompiledStep``: a key's first call is the
+    capture's eager warm-up and returns its answer, later calls replay,
+    so each call issues the two all-gathers once on every rank).  The
+    shape's ValueErrors come before the key is looked up; the carry-reach
+    guard is a flag among the graph's outputs where the shard's offset
+    can reach 2^28, raised on the host after the replay.  A capture or a
+    replay that fails raises.  Over gloo the step is ``seq_step``,
+    eagerly: its all-gathers go through the host."""
+
+    def __init__(self, spec: PipelineSpec, group, device: torch.device):
+        self.spec, self.group, self.device = spec, group, device
+        self.compiled = None
+        if dist.get_backend(group) == "nccl" and device.type == "cuda":
+            self.compiled = nccl_compiled_step(self._flat)
+
+    def _flat(self, codes, lengths) -> tuple:
+        seg, far = _seq_body(codes, lengths, self.spec, self.group)
+        return (*seg, *(() if far is None else (far,)))
+
+    def __call__(self, codes, lengths) -> KminmerSegments:
+        codes = torch.as_tensor(codes).to(self.device).contiguous()
+        lengths = torch.as_tensor(lengths).to(self.device, torch.int32)
+        if self.compiled is None:
+            return seq_step(codes, lengths, self.spec, self.group)
+        _check_shape(codes.shape[1], dist.get_world_size(self.group))
+        out = self.compiled(codes, lengths)
+        n = len(KminmerSegments._fields)
+        _raise_far(out[n] if len(out) > n else None, dist.get_rank(self.group))
+        return KminmerSegments(*out[:n])
+
+
+def make_seq_pipeline(spec: PipelineSpec, mesh, device="cuda") -> SequenceShardedPipeline:
     """-> step(codes, lengths) -> this rank's KminmerSegments.  codes is
     uint8[B/n_data, C], this rank's block of codes[B, L] with L = n_seq * C
     (``batch_sharding(..., seq_sharded=True)``), lengths int32[B/n_data]
@@ -112,102 +267,12 @@ def make_seq_pipeline(spec: PipelineSpec, mesh, device="cuda"):
     n_minimizers_seg, and the caller reruns on ``api.rescue_spec`` sized
     for S times the largest raw count, since survivors may crowd into one
     shard.  CUDA tensors launch the kernels; ``device="cpu"`` runs their
-    plain versions."""
+    plain versions.  Over NCCL the step is a captured graph
+    (``SequenceShardedPipeline``)."""
     if not spec.fused:
         raise ValueError(f"the sequence-sharded path needs 2 <= l <= 255 (K1's carry), "
                          f"got l={spec.l}")
-    device = _device(device)
-    group = mesh.get_group("seq")
-    S, s = dist.get_world_size(group), dist.get_rank(group)
-    l, k, t = spec.l, spec.k, spec.k - 1
-    wide = spec.hash_width == 64
-    shards = torch.arange(S, device=device)
-
-    def step(codes, lengths) -> KminmerSegments:
-        codes = torch.as_tensor(codes).to(device).contiguous()
-        lengths = torch.as_tensor(lengths).to(device, torch.int32)
-        Bl, C = codes.shape
-        L = S * C
-        if C % BLOCK:
-            raise ValueError(f"padded length {L} must be a multiple of {S * BLOCK} "
-                             f"(seq={S} shards x {BLOCK}-base blocks)")
-        if L >= 1 << 31:
-            raise ValueError(f"padded length {L} does not fit int32 positions")
-        cap = max(-(-spec.capacity_for(L) // S), k)
-        off = s * C
-        local_len = (lengths.to(torch.int64) - off).clamp(0, C).to(torch.int32)
-        cols = torch.arange(cap, device=device)[None, :]
-
-        # 1. Base space: the shard's kept count and last l elements (K1's
-        # passes 1-2), gathered; this shard's first rank and carry.
-        base, pending = tile_carries(codes, local_len, l, TILE, spec.is_hpc)
-        mine = torch.cat([base[:, -1:], pending[:, -1]], dim=1)
-        got = all_gather(mine, group).to(torch.int64)  # [S, Bl, 1 + l]
-        counts = got[:, :, 0]
-        # Shard j's positions are relative to its own origin; the carry's
-        # are relative to this shard's: on (pos << 3) | code, a subtraction.
-        tails = got[:, :, None, 1:] - (((s - shards) * C) << 3)[:, None, None, None]
-        carry, real = _splice(tails, counts, s)
-        carry = carry[:, 0]
-        if off >= _CARRY_REACH and bool((carry[real] < -(1 << 31)).any()):
-            raise ValueError(f"a carried element lies 2^28 or more bases before shard {s}")
-        base0 = counts[:s].sum(dim=0).to(torch.int32)
-        none = torch.full_like(lengths, -1)
-        limit = torch.where(lengths > l, torch.full_like(lengths, HPC_LIMIT) if spec.is_hpc
-                            else lengths - l, none)
-
-        # K1 from the carry, K2 into the shard's capacity, positions global.
-        st, en, hs, tile_counts = fused_minimizer_scan(
-            codes, local_len, limit, l, spec.bound, spec.strict_threshold, spec.is_hpc,
-            spec.mode == "hpc", TILE, spec.cap_per_tile(TILE), spec.hash_width,
-            spec.variant, base0=base0, carry0=carry.to(torch.int32),
-        )
-        (mst, men, mhs), n_min, n_raw = slot_compact_counts(st, en, hs, tile_counts, cap)
-        hi, lo = mhs if wide else (torch.zeros_like(mhs), mhs)
-        ok = cols < n_min[:, None]
-        mst = torch.where(ok, mst + off, 0)
-        men = torch.where(ok, men + off, 0)
-
-        # 2. Minimizer space: the k-1 minimizers before the shard, then K3
-        # over them and the shard's own stream.  Window w ends at local
-        # minimizer w; it is whole once the read's stream before it
-        # reaches back k-1, i.e. from w = j0 on.
-        n_buf, j0 = n_min, None
-        buf = [lo, hi, mst, men]
-        if t:
-            idx = (n_min[:, None] - t + torch.arange(t, device=device)).clamp(min=0)
-            words = [mst, lo] + ([hi] if wide else [])
-            mine = torch.cat([n_min[:, None]] + [torch.gather(c, 1, idx) for c in words], 1)
-            got = all_gather(mine, group).to(torch.int64)  # [S, Bl, 1 + t * words]
-            n_all = got[:, :, 0]
-            halo, _ = _splice(got[:, :, 1:].reshape(S, Bl, len(words), t), n_all, s)
-            halo = halo.to(torch.int32)
-            h_start, h_lo = halo[:, 0], halo[:, 1]
-            h_hi = halo[:, 2] if wide else torch.zeros_like(h_lo)
-            zero = torch.zeros_like(h_lo)
-            buf = [torch.cat(p, dim=1) for p in ((h_lo, lo), (h_hi, hi), (h_start, mst),
-                                                 (zero, men))]
-            n_buf = n_min + t
-            j0 = (t - n_all[:s].sum(dim=0)).clamp(min=0).to(torch.int32)
-        hash_hi, hash_lo, start, end, rev, n_km = assemble_masked_cuda(
-            buf[0], k, spec.hash_width, buf[1] if wide else None, n_buf, buf[2], buf[3]
-        )
-        if j0 is None:
-            j0 = torch.zeros_like(n_min)
-        else:
-            keep = cols >= j0[:, None]
-            hash_hi, hash_lo, start, end = (torch.where(keep, x, 0)
-                                            for x in (hash_hi, hash_lo, start, end))
-            rev = rev & keep
-            n_km = (n_min - j0).clamp(min=0)
-        return KminmerSegments(
-            hash_hi=hash_hi, hash_lo=hash_lo, start=start, end=end, rev=rev,
-            n_kminmers_seg=n_km[:, None], km_off_seg=j0[:, None],
-            min_hash=lo, min_hash_hi=hi, min_start=mst, min_end=men,
-            n_minimizers_seg=n_min[:, None], n_minimizers_raw_seg=n_raw[:, None],
-        )
-
-    return step
+    return SequenceShardedPipeline(spec, mesh.get_group("seq"), _device(device))
 
 
 def _host(name: str, a) -> np.ndarray:

@@ -142,11 +142,12 @@ def burnin_times(dev) -> dict:
     graphs}}; an eager pass first loads every kernel."""
     from rust_seq2kminmers_torch import api
     from rust_seq2kminmers_torch.ops import pipeline
+    from rust_seq2kminmers_torch.ops.cuda import graph
     from rust_seq2kminmers_torch.scripts import burnin
 
     captured = []
 
-    class Counted(pipeline.CapturedStep):
+    class Counted(graph.CapturedStep):
         def __init__(self, *args):
             captured.append(1)
             super().__init__(*args)
@@ -165,7 +166,7 @@ def burnin_times(dev) -> dict:
             self.seen.add(key)
             return pipeline.kminmer_pipeline(codes, lengths, self.spec)
 
-    real = (api._cached_pipeline, pipeline.CapturedStep)
+    real = (api._cached_pipeline, graph.CapturedStep)
     rules = {
         "eager, loading": lambda spec: functools.partial(pipeline.kminmer_pipeline, spec=spec),
         "eager": lambda spec: functools.partial(pipeline.kminmer_pipeline, spec=spec),
@@ -175,7 +176,7 @@ def burnin_times(dev) -> dict:
     rules["eager again"] = rules["eager"]
     out = {}
     try:
-        pipeline.CapturedStep = Counted
+        graph.CapturedStep = Counted
         for rule, cached in rules.items():
             api._cached_pipeline = cached
             captured.clear()
@@ -185,7 +186,7 @@ def burnin_times(dev) -> dict:
             torch.cuda.synchronize()
             out[rule] = {"seconds": time.perf_counter() - t0, "graphs": len(captured)}
     finally:
-        api._cached_pipeline, pipeline.CapturedStep = real
+        api._cached_pipeline, graph.CapturedStep = real
     return out
 
 

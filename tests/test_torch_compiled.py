@@ -20,7 +20,7 @@ from rust_seq2kminmers_torch import api, bench_suite
 from rust_seq2kminmers_torch.constants import encode_xcodes
 from rust_seq2kminmers_torch.convert import spec_from_jax
 from rust_seq2kminmers_torch.io import stream
-from rust_seq2kminmers_torch.ops.cuda import build
+from rust_seq2kminmers_torch.ops.cuda import build, graph
 from rust_seq2kminmers_torch.ops.cuda.graph import CapturedStep
 from rust_seq2kminmers_torch.ops.pipeline import CompiledPipeline, PipelineSpec, kminmer_pipeline
 from rust_seq2kminmers_torch.scripts import bench as twin
@@ -142,6 +142,62 @@ def test_capture_counts_are_taken_back():
     finally:
         build.launches.clear()
         build.launches.update(saved)
+
+
+class _StubStep:
+    """A CapturedStep without a card: its warm-up doubles the inputs, its
+    replays triple them."""
+
+    made: list = []
+
+    def __init__(self, fn, inputs, device):
+        _StubStep.made.append(tuple(x.shape for x in inputs))
+        self._warm = tuple(x * 2 for x in inputs)
+
+    def take_warmup(self):
+        warm, self._warm = self._warm, None
+        return warm
+
+    def __call__(self, *inputs):
+        return tuple(x * 3 for x in inputs)
+
+
+def test_compiled_step_answers_first_calls_and_evicts_oldest(monkeypatch):
+    """A key's first call is answered by its capture's warm-up, later ones
+    by replays; past MAX_GRAPHS keys the least recently used goes, and a
+    key met again after that is captured anew."""
+    monkeypatch.setattr(graph, "CapturedStep", _StubStep)
+    _StubStep.made = []
+    step = graph.CompiledStep(lambda *x: x)
+    n = graph.MAX_GRAPHS
+    xs = [torch.ones(i + 1, dtype=torch.int32) for i in range(n + 2)]
+    for x in xs[:n]:
+        assert torch.equal(step(x)[0], x * 2)
+    assert torch.equal(step(xs[0])[0], xs[0] * 3) and len(_StubStep.made) == n
+    step.capture(xs[n])  # evicts xs[1], the least recently used, not xs[0]
+    assert torch.equal(step(xs[n])[0], xs[n] * 3)
+    assert len(step.graphs) == n and len(_StubStep.made) == n + 1
+    assert torch.equal(step(xs[0])[0], xs[0] * 3)
+    assert torch.equal(step(xs[1])[0], xs[1] * 2)  # captured again
+    assert len(step.graphs) == n and _StubStep.made[-1] == ((2,),)
+    assert [k[1][0] for k in step.graphs] == [(i + 1,) for i in [*range(3, n + 1), 0, 1]]
+
+
+def test_release_graphs_drops_the_nccl_steps_graphs(monkeypatch):
+    """release_graphs empties every step made by nccl_compiled_step (and
+    no other), which then captures again on its next call."""
+    from rust_seq2kminmers_torch.parallel import mesh
+
+    monkeypatch.setattr(graph, "CapturedStep", _StubStep)
+    _StubStep.made = []
+    held, other = mesh.nccl_compiled_step(lambda *x: x), graph.CompiledStep(lambda *x: x)
+    xs = [torch.ones(i + 1, dtype=torch.int32) for i in range(2)]
+    for step in (held, other):
+        for x in xs:
+            step(x)
+    mesh.release_graphs()
+    assert len(held.graphs) == 0 and len(other.graphs) == 2
+    assert torch.equal(held(xs[0])[0], xs[0] * 2) and len(_StubStep.made) == 5
 
 
 def test_capture_needs_a_gpu(monkeypatch):

@@ -637,10 +637,11 @@ def test_overflow_rescue_on_card(cuda, monkeypatch, mode, l, tile_cap, family):
     out = kminmers_batch(torch.from_numpy(codes).to(cuda), lengths.to(cuda), spec)
     ran = {name: build.launches[name] - before.get(name, 0) for name in build.launches}
     # Each run, the first and each retry, is its graph's capture: the
-    # capture's warm-up launches once and the replay once.
-    assert len(calls) >= 1 and ran["assemble"] == 2 * (len(calls) + 1)
+    # capture's warm-up launches once and answers the run; the capture
+    # itself launches nothing.
+    assert len(calls) >= 1 and ran["assemble"] == len(calls) + 1
     key = "fused_scan" if spec.fused else "general_scan"
-    assert ran[key] == 2 * (len(calls) + 1)
+    assert ran[key] == len(calls) + 1
     assert torch.equal(out.n_minimizers, out.n_minimizers_raw)
     want = kminmers_batch(torch.from_numpy(codes), lengths, spec)
     for name, g, w in zip(out._fields, out, want):
@@ -859,6 +860,7 @@ def test_kminmers_vec_on_card(cuda, mode, hash_width):
 
 from rust_seq2kminmers_torch import bench_suite  # noqa: E402
 from rust_seq2kminmers_torch.ops import pipeline  # noqa: E402
+from rust_seq2kminmers_torch.ops.cuda import graph  # noqa: E402
 from rust_seq2kminmers_torch.ops.cuda.graph import CapturedStep  # noqa: E402
 
 GRAPH_SPECS = {
@@ -955,7 +957,7 @@ def test_rescue_after_precompile_captures_nothing(cuda, monkeypatch):
     def no_capture(*args):
         raise AssertionError("a capture after precompile_rescue")
 
-    monkeypatch.setattr(pipeline, "CapturedStep", no_capture)
+    monkeypatch.setattr(graph, "CapturedStep", no_capture)
     calls = _count_rescues(monkeypatch, api)
     out = kminmers_batch(codes_d, lengths.to(cuda), spec)
     assert calls == [int(out.n_minimizers_raw.max())] and api.rescue_spec(spec) == \
@@ -994,3 +996,78 @@ def test_suite_unit_graph_sums(cuda):
     _, sums = bench_suite.timed_units(step, pool, 5)
     want = [sum(int(step(pool[i % 3])[j]) for i in range(5)) for j in range(2)]
     assert sums == want and sums[1] > 0
+
+
+# ---- the compiled multi-device steps in NCCL worlds ----------------------------
+
+from rust_seq2kminmers_torch.parallel import driver, seqshard  # noqa: E402
+from rust_seq2kminmers_torch.parallel.launch import run_world  # noqa: E402
+from rust_seq2kminmers_torch.parallel.mesh import batch_sharding, make_mesh  # noqa: E402
+
+
+def _differences(got, want, what) -> list:
+    """The positions where two tuples of tensors differ."""
+    assert len(got) == len(want), what
+    return [f"{what}: field {i}" for i, (g, w) in enumerate(zip(got, want))
+            if not (g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w))]
+
+
+def _nccl_rank(device, L, rows):
+    """In an NCCL world, one GPU a rank: the compiled DP step against
+    dp_step on this rank's rows (padded to L << rank, so that the ranks
+    capture different keys), over three calls on two batches and a forced
+    rescue; the compiled sharded step against seq_step on one read over
+    every rank, twice -> the fields that differ, and the graphs captured."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    batches, lengths = _graph_inputs(device, rows, L << rank)
+    mesh = make_mesh()
+    group = mesh.get_group("data")
+    bad, steps = [], []
+    for spec in (GRAPH_SPECS["main"], PipelineSpec(l=11, k=3, density=0.05, mode="hpcsimd",
+                                                   max_minimizers=4096, tile_cap=8)):
+        step = driver.make_dp_pipeline(spec, mesh, device)
+        steps.append(step)
+        for i in range(3):
+            got = step(batches[i % 2], lengths)
+            want = driver.dp_step(batches[i % 2], lengths, spec, group)
+            bad += _differences((*got.batch, *got[1:]), (*want.batch, *want[1:]),
+                                f"DP call {i} {spec.tile_cap}")
+        # lost counts the ranks where a read lost minimizers: all of them here
+        if int(got.lost) != world * (spec.tile_cap == 8):
+            bad.append(f"lost {int(got.lost)}")
+    seq_mesh = make_mesh(1, world)
+    codes, n = _graph_inputs(device, 1, world << 16)[0][0], torch.full(
+        (1,), (world << 16) - 77, dtype=torch.int32, device=device)
+    _, cols = batch_sharding(seq_mesh, 1, world << 16, seq_sharded=True)
+    local = codes[:, cols].contiguous()
+    spec = GRAPH_SPECS["main"]
+    sstep = seqshard.make_seq_pipeline(spec, seq_mesh, device)
+    steps.append(sstep)
+    for i in range(2):
+        bad += _differences(sstep(local, n),
+                            seqshard.seq_step(local, n, spec, seq_mesh.get_group("seq")),
+                            f"sharded call {i}")
+    return bad, [len(st.compiled.graphs) for st in steps]
+
+
+@pytest.fixture
+def two_cuda(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: NCCL takes one GPU a rank")
+    return cuda
+
+
+def test_compiled_parallel_steps_world_of_one(cuda):
+    """In an NCCL world of one, make_dp_pipeline and make_seq_pipeline
+    return captured steps that equal dp_step and seq_step in every field."""
+    (bad, graphs), = run_world(_nccl_rank, 1, "nccl", cuda, 1 << 16, 4)
+    assert bad == [] and graphs == [1, 1, 1]
+
+
+def test_compiled_parallel_steps_world_of_two(two_cuda):
+    """Two NCCL ranks that pad their rows differently (and so capture at
+    different calls) and rescue together: no hang, every field equal."""
+    out = run_world(_nccl_rank, 2, "nccl", two_cuda, 1 << 15, 4)
+    assert [bad for bad, _ in out] == [[], []] and [g for _, g in out] == [[1, 1, 1]] * 2

@@ -59,24 +59,41 @@ def files(tmp_path_factory):
 
 def _file_world(device, jobs):
     """Each job (name, path, spec, out_dir) through run_file_distributed ->
-    {name: (this rank's chunks, the raw counts each rescue was asked for)}."""
+    {name: (this rank's chunks, the raw counts each rescue was asked for,
+    (the specs make_dp_pipeline was asked for, the ids of the steps it
+    returned, the steps constructed)}."""
     from rust_seq2kminmers_torch import api
+    from rust_seq2kminmers_torch.parallel import driver
 
     real, out = api.rescue_spec, {}
+    real_make, real_cls = driver.make_dp_pipeline, driver.DataParallelPipeline
     for name, path, spec, out_dir in jobs:
-        asked = []
+        asked, made, built = [], [], []
 
         def counted(s, needed=0, asked=asked):
             asked.append(needed)
             return real(s, needed)
 
+        def make(spec, mesh, device="cuda", made=made):
+            step = real_make(spec, mesh, device)
+            made.append((spec, id(step)))
+            return step
+
+        class Built(real_cls):
+            def __init__(self, *args, built=built):
+                built.append(args[0])
+                super().__init__(*args)
+
         api.rescue_spec = counted
+        driver.make_dp_pipeline, driver.DataParallelPipeline = make, Built
+        driver._dp_pipeline.cache_clear()
         try:
             chunks = multihost.run_file_distributed(path, spec, rows_per_rank=ROWS_PER_RANK,
                                                     out_dir=out_dir, device=device)
         finally:
             api.rescue_spec = real
-        out[name] = (chunks, asked)
+            driver.make_dp_pipeline, driver.DataParallelPipeline = real_make, real_cls
+        out[name] = (chunks, asked, ([s for s, _ in made], [i for _, i in made], built))
     return out
 
 
@@ -185,6 +202,23 @@ def test_overflow_is_rescued_collectively(runs, files):
                 i, rec.hash, rec.start, rec.end, rec.offset, rec.rev)
             pos += 1
     assert pos == len(got["hash"])
+
+
+@pytest.mark.parametrize("name", ["hpcsimd_u32", "dense"])
+def test_dp_step_is_cached_across_batches_and_retries(runs, name):
+    """run_file_distributed asks make_dp_pipeline for a step on every batch
+    and every retry; each (spec, group) is constructed once and the same
+    object comes back every time."""
+    port = runs[0]
+    for rank in port:
+        specs, ids, built = rank[name][2]
+        assert len(specs) > len(set(specs)) and len(built) == len(set(specs))
+        assert sorted(built, key=repr) == sorted(set(specs), key=repr)
+        first = {}
+        for spec, i in zip(specs, ids):
+            assert first.setdefault(spec, i) == i
+    if name == "dense":  # two batches, each rescued once
+        assert len(port[0][name][2][0]) == 4
 
 
 def test_one_process_is_a_world_of_one(runs, files):

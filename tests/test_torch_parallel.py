@@ -60,13 +60,18 @@ def _errors(*calls):
 def _dp_world(device, codes, lengths):
     """mode -> (this rank's piece, merge_ordered gathered to rank 0); and
     the messages of the mesh's refusals."""
+    import torch
+
     mesh = make_mesh()
     rows = row_sharding(mesh, len(codes))
+    group = mesh.get_group("data")
     out = {}
     for mode in MODES:
-        res = driver.make_dp_pipeline(PipelineSpec(mode=mode, **SPEC), mesh, device)(
-            codes[rows], lengths[rows])
-        out[mode] = (_piece(res), driver.merge_ordered(res, mesh))
+        spec = PipelineSpec(mode=mode, **SPEC)
+        res = driver.make_dp_pipeline(spec, mesh, device)(codes[rows], lengths[rows])
+        plain = driver.dp_step(torch.from_numpy(codes[rows]), torch.from_numpy(lengths[rows]),
+                               spec, group)
+        out[mode] = (_piece(res), driver.merge_ordered(res, mesh), _piece(plain))
     out["errors"] = _errors((make_mesh, (8,)), (make_mesh, (2, 4)),
                             (row_sharding, (mesh, 6)), (batch_sharding, (mesh, 4, 1000, False)))
     grid = make_mesh(2, 2)
@@ -115,13 +120,9 @@ def _same_dict(got, want):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_dp_step_equals_reference(runs, mode):
-    """Every rank's rows, in rank order, are the reference's sharded batch
+def _same_pieces(pieces, want):
+    """The ranks' pieces, in rank order, are the reference's sharded batch
     (all 12 fields), with its offsets, total and loss flag."""
-    port, ref = runs
-    want, _ = ref[mode]
-    pieces = [rank[mode][0] for rank in port]
     for field, w in zip(want.batch._fields, want.batch):
         got = np.concatenate([getattr(p.batch, field) for p in pieces])
         if w.dtype == np.uint32:
@@ -132,6 +133,23 @@ def test_dp_step_equals_reference(runs, mode):
                                   want.global_offset)
     for p in pieces:
         assert int(p.total) == int(want.total) > 0 and int(p.lost) == int(want.lost) == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dp_step_equals_reference(runs, mode):
+    """Every rank's rows, in rank order, are the reference's sharded batch
+    (all 12 fields), with its offsets, total and loss flag."""
+    port, ref = runs
+    _same_pieces([rank[mode][0] for rank in port], ref[mode][0])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_dp_step_equals_reference(runs, mode):
+    """dp_step, the step as a plain function of tensors, gives every rank
+    the reference's rows, offsets, total and loss flag, as the step that
+    make_dp_pipeline returns does."""
+    port, ref = runs
+    _same_pieces([rank[mode][2] for rank in port], ref[mode][0])
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -109,6 +109,10 @@ OVERFLOW = "regular-nthash2-overflow"
 # first run's segments are compared on their raw counts only.
 DENSE = "simd-nthash2-S2"
 MISALIGNED = "misaligned"  # 2048 bases over 4 shards of 512
+# The carry-reach guard at a small size: with _CARRY_REACH at 1024, the run
+# that fills shard 1 leaves shard 2 a carry from shard 0, more than 1024
+# bases before it.
+SPANNING, FAR, FAR_REACH = "hpc-run-spanning-shards", "far-carry", 1024
 
 
 def _inputs(name):
@@ -125,19 +129,30 @@ def _numpy(seg):
 
 
 def _seq_world(device, jobs):
-    """Each job (name, spec, S, codes, lengths) on a (WORLD / S, S) mesh ->
-    {name: [segment, rescued segment if a read lost minimizers]}, or the
-    message of the ValueError the step raised."""
+    """Each job (name, spec, S, codes, lengths, carry reach or None) on a
+    (WORLD / S, S) mesh -> {name: [segment, rescued segment if a read lost
+    minimizers]}, or the message of the ValueError the step raised; and
+    {(name, "plain"): seq_step's segment} for the first run.  A job with a
+    carry reach runs with ``_CARRY_REACH`` set to it."""
     out = {}
-    for name, spec, S, codes, lengths in jobs:
+    real_reach = seqshard._CARRY_REACH
+    for name, spec, S, codes, lengths, reach in jobs:
         mesh = make_mesh(WORLD // S, S)
         rows, cols = batch_sharding(mesh, *codes.shape, seq_sharded=True)
+        seqshard._CARRY_REACH = reach or real_reach
         try:
             seg = seqshard.make_seq_pipeline(spec, mesh, device)(codes[rows, cols], lengths[rows])
         except ValueError as e:
             out[name] = str(e)
             continue
+        finally:
+            seqshard._CARRY_REACH = real_reach
         out[name] = [_numpy(seg)]
+        if reach is not None:  # a rank raised: the others must not gather again
+            continue
+        out[name, "plain"] = _numpy(seqshard.seq_step(
+            torch.from_numpy(codes[rows, cols]), torch.from_numpy(lengths[rows]), spec,
+            mesh.get_group("seq")))
         lost = (seg.n_minimizers_raw_seg > seg.n_minimizers_seg).any().to(torch.int32)
         worst = torch.stack([seg.n_minimizers_raw_seg.max(), lost])
         dist.all_reduce(worst, op=dist.ReduceOp.MAX)
@@ -151,10 +166,12 @@ def _seq_world(device, jobs):
 def runs():
     """(every rank's results, the reference's), the world running while
     the reference computes."""
-    jobs = [(name, PipelineSpec(**CASES[name][0]), CASES[name][1], *_inputs(name))
+    jobs = [(name, PipelineSpec(**CASES[name][0]), CASES[name][1], *_inputs(name), None)
             for name in CASES]
     jobs.append((MISALIGNED, PipelineSpec(l=7, k=2, density=0.1), 4,
-                 np.zeros((2, 2048), dtype=np.uint8), np.array([100, 100], dtype=np.int32)))
+                 np.zeros((2, 2048), dtype=np.uint8), np.array([100, 100], dtype=np.int32), None))
+    jobs.append((FAR, PipelineSpec(**CASES[SPANNING][0]), CASES[SPANNING][1],
+                 *_inputs(SPANNING), FAR_REACH))
     with ThreadPoolExecutor(1) as pool:
         world = pool.submit(run_world, _seq_world, WORLD, "gloo", "cpu", jobs)
         ref = _reference()
@@ -230,6 +247,31 @@ def test_segments_equal_reference(port, reference, name):
     last = want[-1]
     assert (last.n_minimizers_raw_seg == last.n_minimizers_seg).all()
     assert last.n_kminmers_seg.sum() > 0
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_seq_step_equals_reference(port, reference, name):
+    """seq_step, the step as a plain function of tensors, gives every
+    shard the reference's segment (all 13 fields) on the first run."""
+    got = seqshard.join_segments([rank[name, "plain"] for rank in port], CASES[name][1])
+    want = reference[name][0]
+    if name == DENSE:
+        np.testing.assert_array_equal(got.n_minimizers_raw_seg, want.n_minimizers_raw_seg)
+        return
+    _assert_same(got, want, f"{name} seq_step")
+
+
+def test_carry_reach_guard_raises(port):
+    """A carried element that lies _CARRY_REACH or more bases before its
+    shard raises on that shard's rank alone, after both all-gathers, with
+    the guard's message; the other ranks finish their step."""
+    S = CASES[SPANNING][1]
+    for r, rank in enumerate(port):
+        if r == 2:  # data block 0, shard 2
+            assert rank[FAR] == "a carried element lies 2^28 or more bases before shard 2"
+        else:
+            assert isinstance(rank[FAR], list), (r, rank[FAR])
+    assert S == 4 and WORLD // S == 2
 
 
 def test_overflow_is_reported_then_rescued(port):
