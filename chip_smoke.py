@@ -75,10 +75,17 @@ In order, and any failure raises (exit code != 0):
   9. runs the profiling script with the counters at zero: it checks K5 and
      K6 against numpy and times them;
  10. runs the long-read path with the counters at zero (hpcsimd, l=31,
-     k=5, d=0.01, chunk 2^25) and checks it: the same records at chunk
+     k=5, d=0.01, chunk 2^25: a producer thread staging the chunks, the
+     chunk step one captured CUDA graph replayed a chunk, K3 on the
+     device-resident stream) and checks it: the same records at chunk
      2^23; on a 64 Mbp prefix, the same records as ``kminmers_batch`` on
-     one [1, 2^26] row; two 150 Mbp reads batched equal their own runs.
-     Prints the wall time, its GB/s and K1's time per chunk.  Then holds
+     one [1, 2^26] row; two 150 Mbp reads batched equal their own runs;
+     the same records with the eager chunk step; one capture per batch
+     size at chunk 2^25.  Prints the wall time, its GB/s, warm walls of
+     the compiled and the eager step in turns with a profiled call of
+     each (device busy, idle share, the graph's device-to-device copies),
+     the memory a capture at [1, 2^25] holds, and K1's time per chunk.
+     Then holds
      the long read's kernels bit for bit against their plain versions at
      its shapes: K1 with a carry (carry-out included) and its passes 1-2
      and K2 on a [1, 2^25] chunk, K3 on the read's whole [1, M] minimizer
@@ -164,12 +171,14 @@ any of these functions, so ``library_ms`` is null); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 SEED = 7
@@ -316,7 +325,6 @@ def file_phase(dev, card, counters, tmp: Path):
     written into ``tmp``, through the streaming runner; -> (the kernels'
     launches while it ran, the file, the ordered stream of its CLI-defaults
     run)."""
-    import contextlib
     import io
 
     import numpy as np
@@ -1182,6 +1190,7 @@ def main():
         slot_compact_plain,
     )
     from rust_seq2kminmers_torch.ops.hpc import hpc_compress_packed, hpc_keep_mask
+    from rust_seq2kminmers_torch.ops import long_read
     from rust_seq2kminmers_torch.ops.long_read import minimizer_stream_long
     from rust_seq2kminmers_torch.ops.pipeline import (
         PipelineSpec,
@@ -1189,6 +1198,7 @@ def main():
         kminmer_pipeline_plain,
     )
     from rust_seq2kminmers_torch.scripts import prof_mxu_compact as prof
+    from rust_seq2kminmers_torch.scripts import prof_long_read
     from rust_seq2kminmers_torch.scripts.prof_long_read import device_busy
 
     # 1. the card
@@ -1891,10 +1901,41 @@ def main():
              f"batched read {i} vs its own run")
     log(f"long read: 2 x {half} bases batched equal their own runs; batch "
         f"{batch_wall:.4f} s wall = {N_LONG / batch_wall / 1e9:.4f} GB/s")
+    # The compiled chunk step (one replay a chunk) against the eager one,
+    # record for record; the captures; warm walls of both in turns, and
+    # one profiled call of each.
+    lspec = PipelineSpec(**lr)
+    keys = sorted(k[1][0][0] for k in long_read._compiled_chunk_step(lspec, 1 << 25).graphs)
+    check(keys == [1, 2], f"long read: captured batch sizes at chunk 2^25: {keys}")
+
+    def eager_step():
+        return mock.patch.object(long_read, "_compiled_chunk_step", long_read._chunk_step)
+
+    with eager_step():
+        same(recs, kminmers_long(seq, chunk=1 << 25, device=dev, **lr),
+             "compiled vs eager chunk step")
+    turns = {"compiled": [], "eager": []}
+    for way in ("compiled", "eager", "eager", "compiled"):
+        with eager_step() if way == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            kminmers_long(seq, chunk=1 << 25, device=dev, **lr)
+            turns[way].append(time.perf_counter() - t0)
+    for way in turns:
+        with eager_step() if way == "eager" else contextlib.nullcontext():
+            p_wall, busy, _, _, by_name = prof_long_read.profile_call(
+                lambda: kminmers_long(seq, chunk=1 << 25, device=dev, **lr))
+        dtod = by_name.get("Memcpy DtoD (Device -> Device)", (0, 0.0))
+        log(f"long read {way} chunk step on {card}: the same records; warm walls "
+            + ", ".join(f"{w:.4f}" for w in turns[way]) + " s; profiled wall "
+            f"{p_wall:.4f} s, device busy {busy:.4f} s, idle share {1 - busy / p_wall:.4f}; "
+            f"device-to-device copies {dtod[1]:.4f} ms in {dtod[0]}")
+    gm = prof_long_read.graph_memory(long_read, 1, dev)
+    log(f"long read: a capture of the chunk step at [1, 2^25] holds {gm[1] - gm[0]:.1f} MiB "
+        f"({gm[0]:.1f} -> {gm[1]:.1f} MiB reserved) on {card}")
+    long_read._compiled_chunk_step.cache_clear()
     one = torch.from_numpy(seq[None, : 2 << 25].copy()).to(dev)
     full = torch.full((1,), 1 << 25, dtype=torch.int32, device=dev)
     hpc_lim = torch.full_like(full, (1 << 31) - 1)
-    lspec = PipelineSpec(**lr)
     largs = (lspec.l, lspec.bound, True, True, False, TILE, lspec.cap_per_tile(TILE))
     first = fused_minimizer_scan(one[:, : 1 << 25].contiguous(), full, hpc_lim, *largs,
                                  emit_carry=True)

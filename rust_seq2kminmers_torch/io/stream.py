@@ -43,12 +43,12 @@ import torch
 from ..api import _cached_pipeline, _device, kminmers_batch
 from ..constants import family_of_mode
 from ..parallel.driver import stitch_records
+from . import queues
 from .fasta import FastaFile
 
 PAD_QUANTUM = 1024
 ROW_QUANTUM = 8
 IN_FLIGHT = 2  # batches dispatched before the oldest is read back
-_POLL_S = 0.1  # how often a blocked producer checks for a stop
 
 
 def plan_buckets(
@@ -117,25 +117,6 @@ class _Slot:
         return self.codes[: rows * pad].view(rows, pad), self.lengths[:rows]
 
 
-def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
-    while not stop.is_set():
-        try:
-            q.put(item, timeout=_POLL_S)
-            return True
-        except queue.Full:
-            pass
-    return False
-
-
-def _get(q: queue.Queue, stop: threading.Event):
-    while not stop.is_set():
-        try:
-            return q.get(timeout=_POLL_S)
-        except queue.Empty:
-            pass
-    return None
-
-
 class StreamingRunner:
     """Length-bucketed, overlapped FASTA -> k-min-mer stream on ``device``.
 
@@ -187,7 +168,7 @@ class StreamingRunner:
                     chunk = idx[first : first + rows]
                     ids = np.full(rows, -1, dtype=np.int64)
                     ids[: len(chunk)] = chunk
-                    slot = None if free is None else _get(free, stop)
+                    slot = None if free is None else queues.get(free, stop)
                     if free is not None and slot is None:
                         return  # stopped
                     t0 = time.perf_counter()
@@ -196,12 +177,12 @@ class StreamingRunner:
                         out=None if slot is None else slot.arrays(rows, pad),
                     )
                     t_pack += time.perf_counter() - t0
-                    if not _put(q, (chunk, codes, lengths, slot), stop):
+                    if not queues.put(q, (chunk, codes, lengths, slot), stop):
                         return
         except Exception as e:  # handed to the consumer, which raises it
-            _put(q, e, stop)
+            queues.put(q, e, stop)
             return
-        _put(q, t_pack, stop)
+        queues.put(q, t_pack, stop)
 
     def _settle(self, batch, counts, timing, progress):
         """Read one batch back: its counts, a rerun if it overflowed, then

@@ -2,36 +2,48 @@
 its carry, chunk by chunk, on one GPU.
 
 A read is cut into ``chunk``-base pieces (a multiple of 1024).  Each chunk
-is one K1 launch (``ops/cuda/fused_scan.py``) that resumes from the carry
-of the chunk before it: the global kept rank and the last l kept elements,
-packed ``(pos << 3) | code`` with chunk-relative positions.  K2 then
-compacts the chunk's survivors into its minimizer stream, and writes the
-chunk's counts into a device tensor; the slots past them are left
-unwritten, as phase D reads only the valid prefixes.  The carry stays
-on the device from launch to launch, and many reads ride the same
-``[B, chunk]`` launches with a ``[B]``-shaped carry.
+is one step: K1 (``ops/cuda/fused_scan.py``) resumes from the carry of the
+chunk before it (the global kept rank and the last l kept elements,
+packed ``(pos << 3) | code`` with chunk-relative positions), then K2
+compacts the chunk's survivors into its minimizer stream and returns the
+chunk's counts; the slots past them are left unwritten, as phase D reads
+only the valid prefixes.  The carry stays on the device from step to
+step, and many reads ride the same ``[B, chunk]`` steps with a
+``[B]``-shaped carry.  On the card the step is one captured CUDA graph
+(``_compiled_chunk_step``, the counterpart of the reference's jitted
+``_chunk_step``), replayed once a chunk.
 
-The phases of ``minimizer_stream_long_batch``:
+The phases of a call:
 
-  A. every chunk is staged on the host into pinned buffers, copied to
-     the device on a side stream and dispatched, with no host sync; K2
-     writes each chunk's (n_min, n_raw) into one device tensor;
-  B. one fetch of those counts;
+  A. a producer thread stages chunk after chunk into pinned buffers
+     (``_Staging``), while this thread copies each staged chunk to the
+     device on a side stream and dispatches its step, with no host sync;
+  B. one fetch of every chunk's counts;
   C. chunks that lost survivors (a tile's or the stream's capacity) rerun
-     from their saved carry-in on ``api.rescue_spec``: every base of a tile
-     may survive and M is raised to what the counts ask;
-  D. the valid prefix of every chunk's stream is gathered on the device
-     and fetched in one copy.
+     from their saved carry-in on ``api.rescue_spec``, staged the same
+     way: every base of a tile may survive and M is raised to what the
+     counts ask;
+  D. the valid prefix of every chunk's stream is gathered on the device,
+     read after read, into one flat stream.
 
-K-min-mer assembly (K3) then runs over each read's whole minimizer stream.
-CUDA tensors launch the kernels; ``device="cpu"`` runs their plain
-versions.  The reference is ``rust_seq2kminmers_tpu/ops/long_read.py``;
-this module mirrors it function for function, except that the codes go
-to the device unpacked (see ``minimizer_stream_long_batch``).
+K-min-mer assembly (K3) then runs on that device-resident stream, and
+one copy into pinned memory brings back each record's start, end, hash
+and rev; the host only adds each chunk's offset to the positions and
+builds the dicts.  CUDA tensors launch the kernels; ``device="cpu"`` runs
+their plain versions, through the same producer thread.  The reference is
+``rust_seq2kminmers_tpu/ops/long_read.py``; this module mirrors its
+functions, except that the codes go to the device unpacked (see
+``minimizer_stream_long_batch``) and the assembly runs on the flat stream
+in one launch.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+import queue
+import threading
+import time
 from typing import Tuple
 
 import numpy as np
@@ -39,8 +51,10 @@ import torch
 
 from ..api import _device, rescue_spec
 from ..constants import XCODE_PAD, encode_xcodes, family_of_mode
+from ..io import queues
 from .cuda.assemble_kernel import assemble_kminmers_cuda
 from .cuda.fused_scan import TILE, fused_minimizer_scan
+from .cuda.graph import CompiledStep
 from .cuda.slot_compact import slot_compact_counts
 from .pipeline import PipelineSpec
 
@@ -52,91 +66,352 @@ MAX_READ = (1 << 31) - 1  # positions are int32 on the device
 # itself ends each read.  (The reference uses 2^30, which drops windows
 # of reads that keep more than 2^30 bases.)
 HPC_LIMIT = (1 << 31) - 1
-_STAGES = 3  # pinned staging buffers in flight
+_STAGES = 3  # pinned staging buffers
 
 
-def _chunk_step(spec: PipelineSpec, chunk: int, cap: int, m_cap: int):
-    """One chunk: K1 with carry in and out, then K2's compaction of the
-    chunk's survivors into [B, m_cap], valid up to n_min.  K2 writes
-    (n_min, n_raw) into ``cacc[ci]`` (cacc int32[nchunks, 2, B] on the
-    device), so the host never waits inside the chunk loop."""
+def _chunk_step(spec: PipelineSpec, chunk: int):
+    """The eager chunk step of ``spec`` -> ``step(codes uint8[B, chunk],
+    length_local, limit, base0 int32[B], carry0 int32[B, l])`` -> (start,
+    end, hash lo[, hash hi] int32[B, M], n_min, n_raw, base_next int32[B],
+    carry_next int32[B, l]): K1 with carry in and out, then K2's compaction
+    of the chunk's survivors into [B, M], valid up to n_min.
+
+    The counts are outputs, not writes into a tensor of the caller's:
+    captured, the step's inputs are copies (``ops/cuda/graph.py``), so a
+    write into one would never reach the caller, and a chunk index passed
+    in as a Python int would be frozen at its captured value."""
     l = spec.l
+    cap, m_cap = spec.cap_per_tile(TILE), spec.capacity_for(chunk)
 
-    def step(codes, length_local, limit, base0, carry0, cacc, ci):
+    def step(codes, length_local, limit, base0, carry0):
         st, en, hs, counts, carry_out = fused_minimizer_scan(
             codes, length_local, limit, l, spec.bound, spec.strict_threshold,
             spec.is_hpc, spec.mode == "hpc", TILE, cap, spec.hash_width,
             spec.variant, base0=base0, carry0=carry0, emit_carry=True,
         )
-        (mst, men, mhs), _, _ = slot_compact_counts(
-            st, en, hs, counts, m_cap, fill=False, n_min=cacc[ci, 0], n_raw=cacc[ci, 1]
+        (mst, men, mhs), n_min, n_raw = slot_compact_counts(
+            st, en, hs, counts, m_cap, fill=False
         )
         base_next = base0 + counts[:, :, 2].sum(dim=1, dtype=torch.int32)
         # Rebase the carried positions to the next chunk's origin: on the
         # packed (pos << 3) | code a shift of position is a subtraction.
         carry_next = carry_out - (chunk << 3)
-        return mst, men, mhs, base_next, carry_next
+        hash_cols = (mhs[1], mhs[0]) if isinstance(mhs, tuple) else (mhs,)  # lo[, hi]
+        return (mst, men, *hash_cols, n_min, n_raw, base_next, carry_next)
 
     return step
 
 
+@functools.lru_cache(maxsize=8)
+def _compiled_chunk_step(spec: PipelineSpec, chunk: int) -> CompiledStep:
+    """``_chunk_step(spec, chunk)`` compiled: one captured CUDA graph per
+    key (device, B; the chunk and l are fixed), cached per (spec, chunk)
+    as ``api._cached_pipeline`` caches the pipeline; one the cache drops
+    frees its graphs' memory pools.  Not used for CPU tensors."""
+    return CompiledStep(_chunk_step(spec, chunk))
+
+
+class _Clock:
+    """Host-clock seconds of a call's parts, by name (read by
+    ``scripts/prof_long_read.py``): ``lap(name)`` adds the time since the
+    last lap.  ``fill_s`` is the producer's filling time, which overlaps
+    the parts."""
+
+    def __init__(self):
+        self.parts: collections.Counter = collections.Counter()
+        self.fill_s = 0.0
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        t = time.perf_counter()
+        self.parts[name] += t - self._t
+        self._t = t
+
+
 class _Staging:
-    """Chunk ci of every read, padded with XCODE_PAD, on the device.
+    """The chunks of every read, padded with XCODE_PAD, staged by a
+    producer thread ahead of the thread that dispatches them (``run``).
 
-    On a GPU: staged into one of ``_STAGES`` pinned host buffers and copied
-    to a matching device buffer on a side stream.  A pinned buffer is
-    restaged only after its last copy completed, a device buffer is
-    rewritten only after the compute stream's last use of it, and the
-    compute stream waits for each copy.  On the CPU: a fresh tensor."""
+    On a GPU: ``_STAGES`` slots, each a pinned host buffer and a device
+    buffer, allocated here, on the caller's thread.  The producer only
+    fills a free slot's host buffer through numpy and makes no CUDA call:
+    a graph capture (``capture_error_mode="global"``, ``ops/cuda/graph.py``)
+    rejects CUDA calls from other threads.  The caller's thread copies the
+    buffer to the slot's device buffer on a side stream, after the compute
+    stream's last use of that device buffer, makes the compute stream wait
+    for the copy, and hands the slot back to the producer only after the
+    copy has completed.  On the CPU the producer fills a new array a
+    chunk."""
 
-    def __init__(self, rows, chunk: int, device: torch.device):
+    def __init__(self, rows, chunk: int, device: torch.device, clock: _Clock | None = None):
         self.rows, self.chunk, self.device = rows, chunk, device
+        self.lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
+        self.clock = clock or _Clock()
         self.cuda = device.type == "cuda"
         if not self.cuda:
             return
         B = len(rows)
         self.host = [torch.empty((B, chunk), dtype=torch.uint8, pin_memory=True)
                      for _ in range(_STAGES)]
+        self.host_np = [h.numpy() for h in self.host]
         self.dev = [torch.empty((B, chunk), dtype=torch.uint8, device=device)
                     for _ in range(_STAGES)]
-        self.copied = [None] * _STAGES  # event: H2D copy out of host[s] done
         self.used = [None] * _STAGES  # event: compute's last read of dev[s]
         self.stream = torch.cuda.Stream(device)
 
     def _fill(self, ci: int, buf: np.ndarray) -> np.ndarray:
-        c = self.chunk
-        for b, row in enumerate(self.rows):
-            part = row[ci * c : (ci + 1) * c]
-            buf[b, : part.shape[0]] = part
-            buf[b, part.shape[0] :] = XCODE_PAD
+        """Chunk ci of every read into ``buf`` [B, chunk]: a read's bases,
+        then XCODE_PAD; the reads that ended before the chunk in one
+        assignment."""
+        c, lo = self.chunk, ci * self.chunk
+        local = np.clip(self.lengths - lo, 0, c)
+        buf[local == 0] = XCODE_PAD
+        for b in np.flatnonzero(local):
+            n = int(local[b])
+            buf[b, :n] = self.rows[b][lo : lo + n]
+            buf[b, n:] = XCODE_PAD
         return buf
 
-    def host_array(self, ci: int) -> np.ndarray:
-        """A private host array of chunk ci."""
-        return self._fill(ci, np.empty((len(self.rows), self.chunk), dtype=np.uint8))
+    def _produce(self, ids, free, ready, stop) -> None:
+        """Fill chunk after chunk of ``ids`` into a free slot (GPU) or a
+        new array (CPU) and put (slot, buffer) into ``ready``; an exception
+        is put there instead, for the caller's thread to raise."""
+        try:
+            for ci in ids:
+                if free is None:
+                    slot, buf = None, np.empty((len(self.rows), self.chunk), dtype=np.uint8)
+                else:
+                    slot = queues.get(free, stop)
+                    if slot is None:
+                        return  # stopped
+                    buf = self.host_np[slot]
+                t0 = time.perf_counter()
+                self._fill(ci, buf)
+                self.clock.fill_s += time.perf_counter() - t0
+                if not queues.put(ready, (slot, buf), stop):
+                    return
+        except Exception as e:  # handed to the caller's thread, which raises it
+            queues.put(ready, e, stop)
 
-    def upload(self, ci: int) -> torch.Tensor:
-        if not self.cuda:
-            return torch.from_numpy(self.host_array(ci))
-        s = ci % _STAGES
-        if self.copied[s] is not None:
-            self.copied[s].synchronize()
-        self._fill(ci, self.host[s].numpy())
-        with torch.cuda.stream(self.stream):
-            if self.used[s] is not None:
-                self.stream.wait_event(self.used[s])
-            self.dev[s].copy_(self.host[s], non_blocking=True)
-            self.copied[s] = torch.cuda.Event()
-            self.copied[s].record(self.stream)
-        torch.cuda.current_stream(self.device).wait_event(self.copied[s])
-        return self.dev[s]
-
-    def release(self, ci: int) -> None:
-        """Every use of chunk ci's device buffer has been enqueued."""
+    def run(self, ids, dispatch) -> None:
+        """``dispatch(ci, codes)`` on this thread for each chunk index of
+        ``ids``, in order, with ``codes`` uint8[B, chunk] on the device,
+        while the producer stages the chunks after it.  The producer's
+        exception is raised here; an exception here stops the producer,
+        which is joined before ``run`` returns, on every path."""
+        ids = [int(ci) for ci in ids]
+        free = None
         if self.cuda:
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            self.used[ci % _STAGES] = ev
+            free = queue.Queue()
+            for s in range(_STAGES):
+                free.put(s)
+            compute = torch.cuda.current_stream(self.device)
+        ready: queue.Queue = queue.Queue(maxsize=_STAGES)
+        stop = threading.Event()
+        producer = threading.Thread(
+            target=self._produce, args=(ids, free, ready, stop), daemon=True
+        )
+        pending: collections.deque = collections.deque()  # (copy event, slot)
+        clock = self.clock
+        producer.start()
+        try:
+            for ci in ids:
+                # Hand back the slots whose copies have completed; with every
+                # slot here, wait for the oldest copy, or the producer starves.
+                while pending and (len(pending) == _STAGES or pending[0][0].query()):
+                    copied, s = pending.popleft()
+                    copied.synchronize()
+                    free.put(s)
+                clock.lap("A: hand back")
+                item = self._next(ready, producer)
+                clock.lap("A: wait for a staged chunk")
+                if isinstance(item, Exception):
+                    raise item
+                slot, buf = item
+                if not self.cuda:
+                    dispatch(ci, torch.from_numpy(buf))
+                    clock.lap("A: dispatch")
+                    continue
+                with torch.cuda.stream(self.stream):
+                    if self.used[slot] is not None:
+                        self.stream.wait_event(self.used[slot])
+                    self.dev[slot].copy_(self.host[slot], non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(self.stream)
+                compute.wait_event(copied)
+                pending.append((copied, slot))
+                clock.lap("A: H2D issue")
+                dispatch(ci, self.dev[slot])
+                self.used[slot] = torch.cuda.Event()
+                self.used[slot].record(compute)
+                clock.lap("A: dispatch")
+            for copied, _ in pending:  # every slot free for the next run
+                copied.synchronize()
+        finally:
+            stop.set()
+            producer.join()
+        clock.lap("A: hand back")
+
+    @staticmethod
+    def _next(ready: queue.Queue, producer: threading.Thread):
+        """The producer's next item; a producer that ended without one
+        (it always puts one: a chunk or its exception) raises."""
+        while True:
+            try:
+                return ready.get(timeout=queues.POLL_S)
+            except queue.Empty:
+                if not producer.is_alive():
+                    try:
+                        return ready.get_nowait()
+                    except queue.Empty:
+                        raise RuntimeError("the staging thread ended early") from None
+
+
+def _capture(step, B: int, chunk: int, l: int, limit: torch.Tensor) -> None:
+    """Capture ``step``'s key for [B, chunk] now, on this thread, unless
+    it exists: before a producer starts.  An eager step (the CPU's)
+    captures nothing."""
+    if isinstance(step, CompiledStep):
+        zeros = functools.partial(torch.zeros, dtype=torch.int32, device=limit.device)
+        step.capture(torch.zeros((B, chunk), dtype=torch.uint8, device=limit.device),
+                     zeros(B), limit, zeros(B), zeros((B, l)))
+
+
+def _streams(rows, spec: PipelineSpec, chunk: int, device: torch.device, clock: _Clock):
+    """Phases A-D over the reads ``rows`` (uint8[n_b] xcode arrays) -> None
+    when no read is longer than l, else (flat, nm, chunk): flat int32[ncols,
+    total] on ``device``, every read's valid minimizers, read after read
+    and chunk after chunk, as rows start, end (positions in their chunk),
+    hash lo[, hash hi]; nm int[nchunks, B] the counts; chunk rounded up to
+    a multiple of 1024."""
+    lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
+    B = len(rows)
+    n_max = int(lengths.max(initial=0))
+    if n_max > MAX_READ:
+        raise ValueError(f"a read of {n_max} bases exceeds {MAX_READ}")
+    if not spec.fused:
+        raise ValueError(f"long reads need 2 <= l <= 255 (K1's carry), got l={spec.l}")
+    l = spec.l
+    if n_max <= l:
+        return None
+    chunk = -(-max(int(chunk), 1024) // 1024) * 1024
+    nchunks = -(-n_max // chunk)
+    limit_h = np.where(lengths > l, HPC_LIMIT if spec.is_hpc else lengths - l, -1)
+    local = np.clip(lengths[None, :] - chunk * np.arange(nchunks)[:, None], 0, chunk)
+    local_d = torch.from_numpy(local.astype(np.int32)).to(device)  # [nchunks, B]
+    limit = torch.from_numpy(limit_h.astype(np.int32)).to(device)
+    step_for = _compiled_chunk_step if device.type == "cuda" else _chunk_step
+    step = step_for(spec, chunk)
+    _capture(step, B, chunk, l, limit)
+    staging = _Staging(rows, chunk, device, clock)
+    clock.lap("set-up")
+
+    # Phase A: every chunk dispatched; the carry chains on the device.  The
+    # carry comes from the kept stream, which no capacity clips, so a chunk
+    # that overflowed can be rerun later from its saved carry-in.
+    per_chunk = [None] * nchunks  # (stream columns, n_min, n_raw, carry-in)
+    carry = (torch.zeros(B, dtype=torch.int32, device=device),
+             torch.zeros((B, l), dtype=torch.int32, device=device))
+
+    def dispatch(ci, codes):
+        nonlocal carry
+        *cols, n_min, n_raw, base, carry_next = step(codes, local_d[ci], limit, *carry)
+        per_chunk[ci] = (cols, n_min, n_raw, carry)
+        carry = (base, carry_next)
+
+    staging.run(range(nchunks), dispatch)
+
+    def fetch_counts(ids):
+        return torch.stack([t for ci in ids for t in per_chunk[ci][1:3]]).view(
+            len(ids), 2, B).cpu().numpy()
+
+    # Phase B: one fetch of the counts.
+    counts = fetch_counts(range(nchunks))
+    nm, nr = counts[:, 0].copy(), counts[:, 1]
+    clock.lap("B: wait + count fetch")
+
+    # Phase C: rerun the chunks that lost survivors, on the lossless tile
+    # capacity with M raised to the largest raw count.
+    bad = np.flatnonzero((nm < nr).any(axis=1))
+    if bad.size:
+        rstep = step_for(rescue_spec(spec, int(nr.max())), chunk)
+        _capture(rstep, B, chunk, l, limit)
+
+        def redo(ci, codes):
+            *cols, n_min, n_raw, _, _ = rstep(codes, local_d[ci], limit, *per_chunk[ci][3])
+            per_chunk[ci] = (cols, n_min, n_raw, per_chunk[ci][3])
+
+        staging.run(bad, redo)
+        rch = fetch_counts(bad)
+        for i, ci in enumerate(bad):
+            if (rch[i, 0] < rch[i, 1]).any():
+                raise RuntimeError(
+                    f"chunk {ci} overflow not resolved ({rch[i, 0]} < {rch[i, 1]})"
+                )
+            nm[ci] = rch[i, 0]
+        clock.lap("C: rescue")
+
+    # Phase D: the valid prefixes only, gathered on the device.
+    ncols = 4 if spec.hash_width == 64 else 3
+    pieces = [
+        per_chunk[ci][0][col][b, : int(nm[ci, b])]
+        for col in range(ncols) for b in range(B) for ci in range(nchunks)
+        if nm[ci, b]
+    ]
+    total = int(nm.sum())
+    flat = (torch.cat(pieces) if pieces
+            else torch.zeros(0, dtype=torch.int32, device=device)).view(ncols, total)
+    clock.lap("D: gather")
+    return flat, nm, chunk
+
+
+_NUMPY = {torch.int64: np.int64, torch.int32: np.int32, torch.bool: np.bool_}
+
+
+def _fetch(tensors) -> list:
+    """The tensors on the host in one copy: their bytes concatenated on
+    the device (widest elements first keeps every view aligned), copied
+    into pinned memory from a GPU and waited for -> numpy views of that
+    one buffer, in order."""
+    flat = torch.cat([t.contiguous().view(-1).view(torch.uint8) for t in tensors])
+    if flat.device.type == "cuda":
+        host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(flat.device))
+        done.synchronize()
+        flat = host
+    raw, out, at = flat.numpy(), [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        out.append(raw[at : at + n].view(_NUMPY[t.dtype]).reshape(t.shape))
+        at += n
+    return out
+
+
+def _origins(nm: np.ndarray, chunk: int, device) -> torch.Tensor:
+    """int64[total] on the device: the origin (first base) of the chunk of
+    each element of the flat stream (read after read, chunk after chunk),
+    to add to its chunk-relative positions."""
+    nchunks, B = nm.shape
+    origins = np.tile(np.arange(nchunks, dtype=np.int64) * chunk, B)
+    return torch.repeat_interleave(
+        torch.from_numpy(origins).to(device),
+        torch.from_numpy(nm.T.reshape(-1).astype(np.int64)).to(device),
+        output_size=int(nm.sum()),
+    )
+
+
+def _words64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """int64 bit patterns of the u64 values (hi << 32) | lo, from int32
+    words: the two words side by side, little-endian, no arithmetic."""
+    return torch.stack([lo, hi], dim=-1).view(torch.int64).squeeze(-1)
+
+
+def _reads(nm: np.ndarray):
+    """-> (first, stop) of each read's elements in the flat stream."""
+    ends = np.cumsum(nm.sum(axis=0))
+    return list(zip((ends - nm.sum(axis=0)).tolist(), ends.tolist()))
 
 
 def minimizer_stream_long_batch(
@@ -151,93 +426,18 @@ def minimizer_stream_long_batch(
     to the device one byte a base, as they are: packing two a byte on the
     host cost more time than the halved copy saved."""
     device = _device(device)
-    lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
-    B = len(rows)
-    n_max = int(lengths.max(initial=0))
-    if n_max > MAX_READ:
-        raise ValueError(f"a read of {n_max} bases exceeds {MAX_READ}")
-    if not spec.fused:
-        raise ValueError(f"long reads need 2 <= l <= 255 (K1's carry), got l={spec.l}")
-    l = spec.l
-    wide = spec.hash_width == 64
     hdt = {16: np.uint16, 32: np.uint32, 64: np.uint64}[spec.hash_width]
-    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, hdt))
-    if n_max <= l:
-        return [empty] * B
-    chunk = -(-max(int(chunk), 1024) // 1024) * 1024
-    nchunks = -(-n_max // chunk)
-    limit_h = np.where(lengths > l, HPC_LIMIT if spec.is_hpc else lengths - l, -1)
-    local = np.clip(lengths[None, :] - chunk * np.arange(nchunks)[:, None], 0, chunk)
-    local_d = torch.from_numpy(local.astype(np.int32)).to(device)  # [nchunks, B]
-    limit = torch.from_numpy(limit_h.astype(np.int32)).to(device)
-    m_cap = spec.capacity_for(chunk)
-    step = _chunk_step(spec, chunk, spec.cap_per_tile(TILE), m_cap)
-
-    # Phase A: every chunk dispatched; the carry chains on the device.  The
-    # carry comes from the kept stream, which no capacity clips, so a chunk
-    # that overflowed can be rerun later from its saved carry-in.
-    base = torch.zeros(B, dtype=torch.int32, device=device)
-    carry = torch.zeros((B, l), dtype=torch.int32, device=device)
-    cacc = torch.empty((nchunks, 2, B), dtype=torch.int32, device=device)
-    staging = _Staging(rows, chunk, device)
-    per_chunk = []
-    for ci in range(nchunks):
-        carry_in = (base, carry)
-        mst, men, mhs, base, carry = step(
-            staging.upload(ci), local_d[ci], limit, base, carry, cacc, ci
-        )
-        staging.release(ci)
-        per_chunk.append([mst, men, mhs, carry_in])
-
-    # Phase B: one fetch of the counts.
-    counts = cacc.cpu().numpy()
-    nm, nr = counts[:, 0].copy(), counts[:, 1]
-
-    # Phase C: rerun the chunks that lost survivors, on the lossless tile
-    # capacity with M raised to the largest raw count.
-    bad = np.flatnonzero((nm < nr).any(axis=1))
-    if bad.size:
-        rspec = rescue_spec(spec, int(nr.max()))
-        rstep = _chunk_step(
-            rspec, chunk, rspec.cap_per_tile(TILE), rspec.capacity_for(chunk)
-        )
-        rcacc = torch.empty_like(cacc)
-        for ci in bad:
-            b0, c0 = per_chunk[ci][3]
-            codes = torch.from_numpy(staging.host_array(int(ci))).to(device)
-            per_chunk[ci][:3] = rstep(codes, local_d[ci], limit, b0, c0, rcacc, int(ci))[:3]
-        rch = rcacc.cpu().numpy()
-        for ci in bad:
-            if (rch[ci, 0] < rch[ci, 1]).any():
-                raise RuntimeError(
-                    f"chunk {ci} overflow not resolved ({rch[ci, 0]} < {rch[ci, 1]})"
-                )
-            nm[ci] = rch[ci, 0]
-
-    # Phase D: the valid prefixes only, gathered on the device, one copy.
-    def columns(c):
-        mst, men, mhs = c[:3]
-        return [mst, men, *(reversed(mhs) if wide else (mhs,))]  # hash: lo, hi
-
-    ncols = 4 if wide else 3
-    pieces = [
-        columns(per_chunk[ci])[col][b, : int(nm[ci, b])]
-        for col in range(ncols) for b in range(B) for ci in range(nchunks)
-        if nm[ci, b]
-    ]
-    total = int(nm.sum())
-    flat = (torch.cat(pieces).cpu().numpy() if pieces
-            else np.zeros(0, np.int32)).reshape(ncols, total)
-    out = []
-    ends = np.cumsum(nm.sum(axis=0))
-    for b in range(B):
-        seg = flat[:, ends[b] - nm[:, b].sum() : ends[b]]
-        off = np.repeat(np.arange(nchunks, dtype=np.int64) * chunk, nm[:, b])
-        h = seg[2].view(np.uint32)
-        if wide:
-            h = (seg[3].view(np.uint32).astype(np.uint64) << np.uint64(32)) | h
-        out.append((seg[0] + off, seg[1] + off, h.astype(hdt)))
-    return out
+    found = _streams(rows, spec, chunk, device, _Clock())
+    if found is None:
+        empty = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, hdt))
+        return [empty] * len(rows)
+    flat, nm, chunk = found
+    origin = _origins(nm, chunk, device)
+    wide = spec.hash_width == 64
+    start, end, h = _fetch([flat[0] + origin, flat[1] + origin,
+                            _words64(flat[2], flat[3]) if wide else flat[2]])
+    h = h.view(np.uint64 if wide else np.uint32)
+    return [(start[a:z].copy(), end[a:z].copy(), h[a:z].astype(hdt)) for a, z in _reads(nm)]
 
 
 def minimizer_stream_long(
@@ -287,6 +487,55 @@ def _xcodes(seq, mode: str) -> np.ndarray:
     return encode_xcodes(seq, family_of_mode(mode))
 
 
+def _no_records() -> dict:
+    return {
+        "hash": np.zeros(0, np.uint64),
+        "start": np.zeros(0, np.int64),
+        "end": np.zeros(0, np.int64),
+        "offset": np.zeros(0, np.int64),
+        "rev": np.zeros(0, bool),
+    }
+
+
+def _records(rows, spec: PipelineSpec, chunk: int, device: torch.device,
+             clock: _Clock | None = None) -> list:
+    """One records dict per read of ``rows``: phases A-D, then K3 on the
+    device-resident flat stream in one launch (the windows that straddle
+    two reads are computed and dropped: a window's hash depends only on
+    its own elements), then one pinned fetch of each window's start, end,
+    hash (hi, lo) and rev."""
+    clock = clock or _Clock()
+    found = _streams(rows, spec, chunk, device, clock)
+    k = spec.k
+    if found is None or found[0].shape[1] < k:
+        return [_no_records() for _ in rows]
+    flat, nm, chunk = found
+    nwin = flat.shape[1] - k + 1
+    hi = flat[3:4] if spec.hash_width == 64 else None
+    (khi, klo), rev = assemble_kminmers_cuda(flat[2:3], k, spec.hash_width, hi)
+    # Window w: the hash and rev of minimizers w..w+k-1, the start of
+    # minimizer w and the end of minimizer w + k - 1, in the read.
+    origin = _origins(nm, chunk, device)
+    cols = [_words64(klo[0], khi[0]), flat[0, :nwin] + origin[:nwin],
+            flat[1, k - 1 :] + origin[k - 1 :], rev[0]]
+    clock.lap("asm: K3 + columns")
+    h, start, end, rev = _fetch(cols)
+    clock.lap("fetch: pinned copy + wait")
+    out = []
+    for a, z in _reads(nm):
+        nk = max(z - a - (k - 1), 0)
+        w = slice(a, a + nk)
+        out.append({
+            "hash": h[w].view(np.uint64).copy(),
+            "start": start[w].copy(),
+            "end": end[w].copy(),
+            "offset": np.arange(nk, dtype=np.int64),
+            "rev": rev[w].copy(),
+        })
+    clock.lap("records: dicts")
+    return out
+
+
 def kminmers_long(
     seq,
     l: int,
@@ -302,33 +551,10 @@ def kminmers_long(
     uint64, start, end, offset int64, rev bool}[n_kminmers], for reads
     past one launch's length cap (up to 2^31 - 1 bases).  ``seq`` is str,
     bytes or an integer array of xcodes."""
-    spec = PipelineSpec(
-        l=l, k=k, density=density, mode=mode, variant=variant, hash_width=hash_width,
-    )
-    start, end, mhash = minimizer_stream_long(
-        _xcodes(seq, mode), spec, chunk=chunk, device=device
-    )
-    return _records_from_stream(start, end, mhash, k, device)
-
-
-def _records_from_stream(start, end, mhash, k, device):
-    nk = max(int(mhash.shape[0]) - (k - 1), 0)
-    if nk == 0:
-        return {
-            "hash": np.zeros(0, np.uint64),
-            "start": np.zeros(0, np.int64),
-            "end": np.zeros(0, np.int64),
-            "offset": np.zeros(0, np.int64),
-            "rev": np.zeros(0, bool),
-        }
-    kh, rev = assemble_stream(mhash, k, device=device)
-    return {
-        "hash": kh,
-        "start": start[:nk],
-        "end": end[k - 1 :],
-        "offset": np.arange(nk, dtype=np.int64),
-        "rev": rev,
-    }
+    return kminmers_long_batch(
+        [seq], l, k, density, mode=mode, variant=variant, chunk=chunk, device=device,
+        hash_width=hash_width,
+    )[0]
 
 
 def kminmers_long_batch(
@@ -347,7 +573,5 @@ def kminmers_long_batch(
     spec = PipelineSpec(
         l=l, k=k, density=density, mode=mode, variant=variant, hash_width=hash_width,
     )
-    streams = minimizer_stream_long_batch(
-        [_xcodes(s, mode) for s in seqs], spec, chunk=chunk, device=device
-    )
-    return [_records_from_stream(st, en, mh, k, device) for st, en, mh in streams]
+    rows = [_xcodes(s, mode) for s in seqs]
+    return _records(rows, spec, chunk, _device(device))

@@ -1,17 +1,32 @@
 """Profiles the long-read path on one NVIDIA GPU: one 300 Mbp random-ACGT
-read through ``kminmers_long`` (hpcsimd, l=31, k=5, d=0.01, chunk 2^25).
+read through ``kminmers_long`` (hpcsimd, l=31, k=5, d=0.01, chunk 2^25),
+and with ``--reads 2`` two 150 Mbp reads through ``kminmers_long_batch``.
 
-    python -m rust_seq2kminmers_torch.scripts.prof_long_read
+    python -m rust_seq2kminmers_torch.scripts.prof_long_read [--reads 2] [--parent DIR]
 
-  1. a warm-up on a 64 Mbp prefix (the kernels' build, pinned buffers);
-  2. three host-clock walls of the whole read, staging, transfers and
-     assembly included;
-  3. the host's staging alone (filling the 9 chunks, no device);
-  4. one run under ``torch.profiler``: the device's busy time is the union
-     of the intervals of its kernels and copies (copies on the staging
-     stream overlap the compute stream, so a plain sum counts them
-     twice), and the idle share is 1 - busy / wall; then the device time
-     of each kernel and copy, summed by name.
+The path runs two ways in turns: with its compiled chunk step (a captured
+CUDA graph), and with the eager chunk step (``_compiled_chunk_step``
+patched to ``_chunk_step``).  ``--parent DIR`` adds a third: the package
+of another checkout (the PR 11 tree, unpacked by ``git archive``),
+imported as ``s2k_parent``, on the same read in the same process.
+
+  1. the memory a capture of the chunk step holds at [1, 2^25] and [2,
+     2^25]: ``memory_reserved`` before and after, the cache emptied;
+  2. a warm-up call of each way (the kernels' build, the capture);
+  3. three host-clock walls of each way's whole call, in turns, staging,
+     transfers and assembly included; every call's records equal;
+  4. each way's call split part by part on the host clock (three times),
+     with a sync only where the path itself syncs: the driver's own
+     ``_Clock`` laps, and for the PR 11 driver ``split_pr11``, a twin of
+     that driver with a lap at each boundary (its records must equal the
+     real call's); phase A's host issue is its H2D issue and dispatch;
+  5. the host's staging alone, as the path does it: ``_Staging._fill``
+     into one pinned buffer that was already touched, over every chunk;
+  6. one call of each way under ``torch.profiler``: the device's busy
+     time is the union of the intervals of its kernels and copies (copies
+     on the staging stream overlap the compute stream, so a plain sum
+     counts them twice), and the idle share is 1 - busy / wall; then the
+     device time of each kernel and copy, summed by name.
 
 Prints the card's name and power limit first.  Needs a GPU: without one it
 exits with an error and prints no result.
@@ -19,19 +34,23 @@ exits with an error and prints no result.
 
 from __future__ import annotations
 
+import argparse
+import collections
+import importlib
+import importlib.util
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from .. import kminmers_long
-from ..ops.long_read import _Staging
+from ..ops.long_read import _Clock
 from .prof_mxu_compact import card
 
 N = 300_000_000
 CHUNK = 1 << 25
-ARGS = dict(l=31, k=5, density=0.01, mode="hpcsimd", chunk=CHUNK)
+ARGS = dict(l=31, k=5, density=0.01, mode="hpcsimd")
 
 
 def random_read(n: int, seed: int = 9) -> np.ndarray:
@@ -59,52 +78,249 @@ def device_busy(events) -> tuple:
     return union / 1e6, sum(e - s for s, e in spans) / 1e6
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("needs an NVIDIA GPU: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
+def load_package(root: Path, name: str):
+    """``rust_seq2kminmers_torch`` of the checkout at ``root``, imported as
+    ``name`` (its modules import each other relatively)."""
+    pkg_dir = root / "rust_seq2kminmers_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg_dir / "__init__.py", submodule_search_locations=[str(pkg_dir)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def split_pr11(pkg, rows, chunk, dev, l, k, density, mode):
+    """One ``kminmers_long_batch`` call of the PR 11 driver
+    (``ops/long_read.py`` at commit 581692b: fills on the main thread, the
+    eager chunk step, a pageable phase-D fetch, then per read
+    ``_records_from_stream`` through ``assemble_stream``), its statements
+    in order with a lap at each boundary -> (records, {part: seconds}).
+    Covers the call without a rescue (it raises if a chunk overflowed)."""
+    lr = importlib.import_module(pkg.__name__ + ".ops.long_read")
+    from_k1 = importlib.import_module(pkg.__name__ + ".ops.cuda.fused_scan")
+    k3 = importlib.import_module(pkg.__name__ + ".ops.cuda.assemble_kernel")
+    clock = _Clock()
+    spec = lr.PipelineSpec(l=l, k=k, density=density, mode=mode)
+    lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
+    B = len(rows)
+    nchunks = -(-int(lengths.max()) // chunk)
+    limit_h = np.where(lengths > l, lr.HPC_LIMIT if spec.is_hpc else lengths - l, -1)
+    local = np.clip(lengths[None, :] - chunk * np.arange(nchunks)[:, None], 0, chunk)
+    local_d = torch.from_numpy(local.astype(np.int32)).to(dev)
+    limit = torch.from_numpy(limit_h.astype(np.int32)).to(dev)
+    m_cap = spec.capacity_for(chunk)
+    step = lr._chunk_step(spec, chunk, spec.cap_per_tile(from_k1.TILE), m_cap)
+    base = torch.zeros(B, dtype=torch.int32, device=dev)
+    carry = torch.zeros((B, l), dtype=torch.int32, device=dev)
+    cacc = torch.empty((nchunks, 2, B), dtype=torch.int32, device=dev)
+    st = lr._Staging(rows, chunk, dev)
+    clock.lap("set-up")
+    per_chunk = []
+    for ci in range(nchunks):  # _Staging.upload, then the step
+        s = ci % lr._STAGES
+        if st.copied[s] is not None:
+            st.copied[s].synchronize()
+        clock.lap("A: wait for a pinned buffer's copy")
+        st._fill(ci, st.host[s].numpy())
+        clock.lap("A: fill (main thread)")
+        with torch.cuda.stream(st.stream):
+            if st.used[s] is not None:
+                st.stream.wait_event(st.used[s])
+            st.dev[s].copy_(st.host[s], non_blocking=True)
+            st.copied[s] = torch.cuda.Event()
+            st.copied[s].record(st.stream)
+        torch.cuda.current_stream(dev).wait_event(st.copied[s])
+        clock.lap("A: H2D issue")
+        mst, men, mhs, base, carry = step(st.dev[s], local_d[ci], limit, base, carry,
+                                          cacc, ci)
+        st.release(ci)
+        per_chunk.append([mst, men, mhs])
+        clock.lap("A: step dispatch")
+    counts = cacc.cpu().numpy()
+    clock.lap("B: wait + count fetch")
+    nm, nr = counts[:, 0].copy(), counts[:, 1]
+    if (nm < nr).any():
+        raise RuntimeError("a chunk overflowed: the twin covers no rescue")
+    ncols = 3
+    pieces = [per_chunk[ci][col][b, : int(nm[ci, b])]
+              for col in range(ncols) for b in range(B) for ci in range(nchunks)
+              if nm[ci, b]]
+    total = int(nm.sum())
+    flat_d = torch.cat(pieces)
+    clock.lap("D: gather (enqueue)")
+    flat = flat_d.cpu().numpy().reshape(ncols, total)
+    clock.lap("D: fetch (pageable)")
+    streams = []
+    ends = np.cumsum(nm.sum(axis=0))
+    for b in range(B):
+        seg = flat[:, ends[b] - nm[:, b].sum() : ends[b]]
+        off = np.repeat(np.arange(nchunks, dtype=np.int64) * chunk, nm[:, b])
+        streams.append((seg[0] + off, seg[1] + off, seg[2].view(np.uint32)))
+    clock.lap("D: per-read stitch")
+    out = []
+    for start, end, mhash in streams:  # _records_from_stream, assemble_stream
+        nk = max(int(mhash.shape[0]) - (k - 1), 0)
+        row = mhash.astype(np.uint64)[None, :]
+        lo_h = (row & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+        clock.lap("asm: host preparation")
+        lo = torch.from_numpy(lo_h).to(dev)
+        clock.lap("asm: H2D")
+        (khi, klo), rev = k3.assemble_kminmers_cuda(lo, k, 32, None)
+        clock.lap("asm: K3 enqueue")
+        h = (khi[0].cpu().numpy().view(np.uint32).astype(np.uint64) << np.uint64(32)) | (
+            klo[0].cpu().numpy().view(np.uint32))
+        r = rev[0].cpu().numpy()
+        clock.lap("asm: fetches")
+        out.append({"hash": h, "start": start[:nk], "end": end[k - 1 :],
+                    "offset": np.arange(nk, dtype=np.int64), "rev": r})
+        clock.lap("records: dicts")
+    return out, dict(clock.parts)
+
+
+def same_records(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(
+            x[c].dtype == y[c].dtype and np.array_equal(x[c], y[c]) for c in x)
+        for x, y in zip(a, b))
+
+
+def profile_call(fn) -> tuple:
+    """fn() once under torch.profiler -> (wall s, device busy s, summed s,
+    events, {name: (count, ms)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    name = card()
-    print(name, flush=True)
-    dev = torch.device("cuda", 0)
-    seq = random_read(N)
-    t0 = time.perf_counter()
-    kminmers_long(seq[: 2 * CHUNK], device=dev, **ARGS)
-    print(f"warm-up (build + 64 Mbp): {time.perf_counter() - t0:.4f} s", flush=True)
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        n_rec = len(kminmers_long(seq, device=dev, **ARGS)["hash"])
-        walls.append(time.perf_counter() - t0)
-    print(f"{N} bases, {n_rec} k-min-mers on {name}: walls "
-          + ", ".join(f"{w:.4f}" for w in walls) + " s = "
-          + ", ".join(f"{N / w / 1e9:.4f}" for w in walls) + " GB/s", flush=True)
-    staging = _Staging([seq], CHUNK, torch.device("cpu"))
-    t0 = time.perf_counter()
-    for ci in range(-(-N // CHUNK)):
-        staging.host_array(ci)
-    print(f"host staging alone ({-(-N // CHUNK)} chunks): "
-          f"{time.perf_counter() - t0:.4f} s", flush=True)
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        kminmers_long(seq, device=dev, **ARGS)
+        fn()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         raise RuntimeError("the profiler recorded no device event")
     union, summed = device_busy(events)
-    print(f"profiled wall {wall:.4f} s; device busy {union:.4f} s (union of "
-          f"{len(events)} kernels and copies; summed {summed:.4f} s); idle share "
-          f"{1 - union / wall:.4f}")
     by_name = {}
     for e in events:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + (e.time_range.end - e.time_range.start) / 1e3)
-    for key, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-        print(f"  {ms:10.3f} ms  x{n:<4d} {key[:90]}")
+    return wall, union, summed, len(events), by_name
+
+
+def graph_memory(lr, B: int, dev) -> tuple:
+    """MiB reserved by the device allocator before and after capturing the
+    compiled chunk step at [B, CHUNK] (the cache emptied on both sides, so
+    the capture's warm-up, freed, is not counted)."""
+    spec = lr.PipelineSpec(**ARGS)
+    lr._compiled_chunk_step.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev) / 2**20
+    step = lr._compiled_chunk_step(spec, CHUNK)
+    limit = torch.full((B,), (1 << 31) - 1, dtype=torch.int32, device=dev)
+    lr._capture(step, B, CHUNK, spec.l, limit)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return before, torch.cuda.memory_reserved(dev) / 2**20
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reads", type=int, default=1, choices=(1, 2))
+    ap.add_argument("--parent", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from unittest import mock
+
+    name = card()
+    print(name, flush=True)
+    dev = torch.device("cuda", 0)
+    seq = random_read(N)
+    if args.reads == 1:
+        rows = [seq]
+    else:
+        rows = [seq[: N // 2], seq[N // 2 :].copy()]
+        rows[1][0] |= 8  # a read's first base is always kept
+    shape = f"{len(rows)} x {N // len(rows)} bases"
+    here = sys.modules[__package__.rsplit(".", 1)[0]]
+    lr = importlib.import_module(here.__name__ + ".ops.long_read")
+    for B in (1, 2):
+        before, after = graph_memory(lr, B, dev)
+        print(f"graph memory, the chunk step at [{B}, 2^25] on {name}: "
+              f"{before:.1f} -> {after:.1f} MiB reserved (+{after - before:.1f})",
+              flush=True)
+
+    def new_split():
+        clock = _Clock()
+        got = lr._records(rows, lr.PipelineSpec(**ARGS), CHUNK, dev, clock)
+        return got, {**clock.parts, "fill (producer, overlapped)": clock.fill_s}
+
+    def eager(fn):
+        def run():
+            with mock.patch.object(lr, "_compiled_chunk_step", lr._chunk_step):
+                return fn()
+        return run
+
+    def call():
+        return here.kminmers_long_batch(rows, chunk=CHUNK, device=dev, **ARGS)
+
+    calls = {"compiled": call, "eager step": eager(call)}
+    splits = {"compiled": new_split, "eager step": eager(new_split)}
+    if args.parent:
+        parent = load_package(Path(args.parent).resolve(), "s2k_parent")
+        calls["PR 11 tree"] = lambda: parent.kminmers_long_batch(
+            rows, chunk=CHUNK, device=dev, **ARGS)
+        splits["PR 11 tree"] = lambda: split_pr11(parent, rows, CHUNK, dev, **ARGS)
+    for label, call in calls.items():
+        t0 = time.perf_counter()
+        call()
+        print(f"{label}: warm-up (build, capture, first call): "
+              f"{time.perf_counter() - t0:.4f} s", flush=True)
+
+    walls = collections.defaultdict(list)
+    want = calls[next(iter(calls))]()
+    for turn in range(3):
+        for label in (calls if turn % 2 == 0 else reversed(list(calls))):
+            t0 = time.perf_counter()
+            got = calls[label]()
+            walls[label].append(time.perf_counter() - t0)
+            if not same_records(got, want):
+                raise RuntimeError(f"{label}: records differ from the first call's")
+    n_rec = sum(len(r["hash"]) for r in want)
+    for label, ws in walls.items():
+        print(f"{label}: {shape}, {n_rec} k-min-mers on {name}: walls "
+              + ", ".join(f"{w:.4f}" for w in ws) + " s = "
+              + ", ".join(f"{N / w / 1e9:.4f}" for w in ws) + " GB/s", flush=True)
+    for turn in range(3):
+        for label in (splits if turn % 2 == 0 else reversed(list(splits))):
+            got, parts = splits[label]()
+            if not same_records(got, want):
+                raise RuntimeError(f"{label}: the split call's records differ")
+            host_a = sum(v for k, v in parts.items()
+                         if k in ("A: H2D issue", "A: step dispatch", "A: dispatch"))
+            print(f"{label} split (host clock, s): total "
+                  f"{sum(v for k, v in parts.items() if not k.startswith('fill')):.4f}; "
+                  f"phase A host issue {host_a:.4f}; "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
+
+    staging = lr._Staging(rows, CHUNK, torch.device("cpu"))
+    buf = torch.empty((len(rows), CHUNK), dtype=torch.uint8, pin_memory=True).numpy()
+    staging._fill(0, buf)  # touched once
+    nchunks = -(-max(len(r) for r in rows) // CHUNK)
+    t0 = time.perf_counter()
+    for ci in range(nchunks):
+        staging._fill(ci, buf)
+    print(f"host staging alone ({nchunks} chunks into one touched pinned buffer): "
+          f"{time.perf_counter() - t0:.4f} s", flush=True)
+
+    for label, call in calls.items():
+        wall, union, summed, n_ev, by_name = profile_call(call)
+        print(f"{label}: profiled wall {wall:.4f} s; device busy {union:.4f} s (union of "
+              f"{n_ev} kernels and copies; summed {summed:.4f} s); idle share "
+              f"{1 - union / wall:.4f}")
+        for key, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+            print(f"  {ms:10.3f} ms  x{n:<4d} {key[:90]}")
     return 0
 
 

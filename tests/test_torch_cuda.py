@@ -584,10 +584,13 @@ def test_kminmers_long_on_card(cuda, mode, hash_width):
     seqs = ["".join(rng.choice(list("ACGTTTTTN"), size=n)) for n in (300000, 70001, 20)]
     kw = dict(l=31, k=5, density=0.02, mode=mode, hash_width=hash_width)
     want = [kminmers_long(s, chunk=1 << 16, device="cpu", **kw) for s in seqs]
+    long_read._compiled_chunk_step.cache_clear()
     before = dict(build.launches)
     got = kminmers_long(seqs[0], chunk=1 << 16, device=cuda, **kw)
     ran = {name: build.launches[name] - before.get(name, 0) for name in build.launches}
-    assert ran["fused_scan"] == 5 and ran["slot_compact"] == 5 and ran["assemble"] == 1
+    # 5 chunks, each one replay of the chunk step's graph, after the
+    # capture's warm-up (one more K1 and K2); K3 once.
+    assert ran["fused_scan"] == 6 and ran["slot_compact"] == 6 and ran["assemble"] == 1
     for key in want[0]:
         assert np.array_equal(got[key], want[0][key]), key
     for chunk in (1 << 10, 1 << 20):
@@ -657,11 +660,87 @@ def test_long_read_rescue_on_card(cuda, monkeypatch):
     codes = encode_xcodes(seq, "scalar")
     spec = PipelineSpec(l=5, k=2, density=0.9, mode="regular", tile_cap=128)
     calls = _count_rescues(monkeypatch, long_read)
+    long_read._compiled_chunk_step.cache_clear()
     got = long_read.minimizer_stream_long(codes, spec, chunk=1024, device=cuda)
     assert len(calls) == 1 and calls[0] > 128
+    # Both steps, the spec's and the rescue's, ran as captured graphs.
+    for s in (spec, api.rescue_spec(spec, calls[0])):
+        assert len(long_read._compiled_chunk_step(s, 1024).graphs) == 1
     want = long_read.minimizer_stream_long(codes, spec, chunk=1024, device="cpu")
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+# ---- the long read's compiled chunk step ---------------------------------------
+
+
+def _long_rows(seed, lengths):
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(list("ACGTTTTTN"), size=n)) for n in lengths]
+
+
+@pytest.mark.parametrize("mode,hash_width,l", [
+    ("regular", 32, 11), ("simd", 32, 11), ("hpc", 32, 11), ("hpcsimd", 32, 11),
+    ("regular", 16, 31), ("regular", 64, 31),
+])
+def test_compiled_long_read_equals_eager(cuda, monkeypatch, mode, hash_width, l):
+    """The long read with its compiled chunk step (one replay a chunk)
+    equals the eager chunk step bit for bit, at chunk 2^16, on a batch of
+    unequal reads."""
+    seqs = _long_rows(13, (300000, 70001, 20))
+    kw = dict(l=l, k=5, density=0.02, mode=mode, hash_width=hash_width, chunk=1 << 16)
+    long_read._compiled_chunk_step.cache_clear()
+    build.launches.clear()
+    got = kminmers_long_batch(seqs, device=cuda, **kw)
+    spec = PipelineSpec(**{k: v for k, v in kw.items() if k != "chunk"})
+    (step,) = long_read._compiled_chunk_step(spec, 1 << 16).graphs.values()
+    # The capture's warm-up launches once; each of the 5 chunks replays.
+    assert build.launches["fused_scan"] == 6 and dict(step.launches)["fused_scan"] == 1
+    monkeypatch.setattr(long_read, "_compiled_chunk_step", long_read._chunk_step)
+    want = kminmers_long_batch(seqs, device=cuda, **kw)
+    for g, w in zip(got, want):
+        for key in w:
+            assert g[key].dtype == w[key].dtype and np.array_equal(g[key], w[key]), key
+    assert len(want[0]["hash"]) > 1000 and len(want[2]["hash"]) == 0
+
+
+def test_long_read_one_capture_per_key(cuda):
+    """Two calls with reads of different lengths at the same (B, chunk)
+    make one capture; the second call only replays, once a chunk."""
+    kw = dict(l=31, k=5, density=0.02, mode="hpcsimd", chunk=1 << 16)
+    spec = PipelineSpec(l=31, k=5, density=0.02, mode="hpcsimd")
+    long_read._compiled_chunk_step.cache_clear()
+    kminmers_long(_long_rows(14, (250000,))[0], device=cuda, **kw)
+    build.launches.clear()
+    kminmers_long(_long_rows(15, (100000,))[0], device=cuda, **kw)
+    assert len(long_read._compiled_chunk_step(spec, 1 << 16).graphs) == 1
+    assert build.launches["fused_scan"] == 2 and build.launches["slot_compact"] == 2
+
+
+def test_capture_beside_live_producer(cuda):
+    """A capture made on the dispatching thread while the staging
+    producer is alive does not fail: the producer makes no CUDA call."""
+    import threading
+
+    spec = PipelineSpec(l=31, k=5, density=0.02, mode="hpcsimd")
+    chunk = 1 << 16
+    rows = [encode_xcodes(s, "simd") for s in _long_rows(16, (5 * chunk,))]
+    staging = long_read._Staging(rows, chunk, cuda)
+    fresh = graph.CompiledStep(long_read._chunk_step(spec, chunk))
+    limit = torch.full((1,), long_read.HPC_LIMIT, dtype=torch.int32, device=cuda)
+    before = set(threading.enumerate())
+    seen = []
+
+    def dispatch(ci, codes):
+        if ci == 0:
+            seen.append([t for t in set(threading.enumerate()) - before if t.is_alive()])
+            long_read._capture(fresh, 1, chunk, spec.l, limit)
+        seen.append(ci)
+
+    staging.run(range(5), dispatch)
+    torch.cuda.synchronize()
+    assert len(seen[0]) == 1 and seen[1:] == list(range(5))
+    assert len(fresh.graphs) == 1 and not seen[0][0].is_alive()
 
 
 # ---- K1's tile-parallel passes ------------------------------------------------

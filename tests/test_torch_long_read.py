@@ -5,6 +5,8 @@ oracle, in the cases of tests/test_long_read.py.  Every output is an
 integer: equality is exact.  Each reference result is computed once, in a
 module-scoped fixture."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -211,22 +213,175 @@ def test_assemble_stream_tiling(dtype):
 
 
 def test_staging_and_limits():
-    """The staged chunks carry every read's codes unchanged, padded with
-    XCODE_PAD past its end; reads of 2^31 bases and l outside K1's carry
-    are refused."""
+    """The producer thread stages every chunk in order, each read's codes
+    unchanged and padded with XCODE_PAD past its end (a read that ended
+    before a chunk is all padding there); reads of 2^31 bases and l
+    outside K1's carry are refused."""
     codes = encode_xcodes(SEQS["mixed"](), "scalar")
     spec = PipelineSpec(l=11, k=3, density=0.05, mode="hpc")
-    rows = [codes, codes[:3000]]
+    rows = [codes, codes[:3000], codes[:0]]
     staging = port._Staging(rows, 2048, torch.device("cpu"))
-    staged = np.concatenate([staging.upload(ci).numpy() for ci in range(5)], axis=1)
+    seen = []
+    staging.run(range(5), lambda ci, t: seen.append((ci, t.numpy().copy())))
+    assert [ci for ci, _ in seen] == list(range(5))
+    staged = np.concatenate([t for _, t in seen], axis=1)
     for row, got in zip(rows, staged):
         np.testing.assert_array_equal(got[: len(row)], row)
         assert (got[len(row) :] == XCODE_PAD).all()
+    seen.clear()
+    staging.run(np.array([3, 1]), lambda ci, t: seen.append((ci, t.numpy().copy())))
+    assert [ci for ci, _ in seen] == [3, 1]
+    np.testing.assert_array_equal(seen[1][1], staged[:, 2048:4096])
     huge = np.broadcast_to(np.uint8(9), (1 << 31,))  # no memory behind it
     with pytest.raises(ValueError, match="exceeds"):
         port.minimizer_stream_long(huge, spec, device="cpu")
     with pytest.raises(ValueError, match="carry"):
         port.minimizer_stream_long(codes, PipelineSpec(l=301, k=3, density=0.05), device="cpu")
+
+
+def _threads_after(fn):
+    """Run fn, which must raise; -> the threads it left behind."""
+    before = set(threading.enumerate())
+    with pytest.raises(RuntimeError, match="injected"):
+        fn()
+    return set(threading.enumerate()) - before
+
+
+def test_producer_exception_reaches_caller(monkeypatch):
+    """An exception in the producer thread (here in its fill of chunk 2)
+    is raised to the caller, and the thread is joined."""
+    real = port._Staging._fill
+
+    def fill(self, ci, buf):
+        if ci == 2:
+            raise RuntimeError("injected fill fault")
+        return real(self, ci, buf)
+
+    monkeypatch.setattr(port._Staging, "_fill", fill)
+    codes = encode_xcodes(SEQS["mixed"](), "scalar")
+    spec = PipelineSpec(l=11, k=3, density=0.05, mode="regular")
+    left = _threads_after(
+        lambda: port.minimizer_stream_long(codes, spec, chunk=1024, device="cpu"))
+    assert not left
+
+
+def test_consumer_exception_stops_producer(monkeypatch):
+    """An exception in the dispatching thread (the chunk step raising on
+    chunk 2 of 9) stops the producer before it stages every chunk, and
+    joins it."""
+    real_step, real_fill = port._chunk_step, port._Staging._fill
+    filled = []
+
+    def chunk_step(spec, chunk):
+        step, calls = real_step(spec, chunk), []
+
+        def failing(*args):
+            calls.append(1)
+            if len(calls) == 3:
+                raise RuntimeError("injected step fault")
+            return step(*args)
+
+        return failing
+
+    def fill(self, ci, buf):
+        filled.append(ci)
+        return real_fill(self, ci, buf)
+
+    monkeypatch.setattr(port, "_chunk_step", chunk_step)
+    monkeypatch.setattr(port._Staging, "_fill", fill)
+    codes = encode_xcodes(SEQS["mixed"](), "scalar")
+    spec = PipelineSpec(l=11, k=3, density=0.05, mode="regular")
+    left = _threads_after(
+        lambda: port.minimizer_stream_long(codes, spec, chunk=1024, device="cpu"))
+    assert not left
+    assert filled == sorted(filled) and 3 <= len(filled) < 9
+
+
+@pytest.mark.parametrize("mode,hash_width", [("hpcsimd", 32), ("regular", 64), ("hpc", 16)])
+def test_chunk_step_counts_are_outputs(mode, hash_width):
+    """The chunk step returns each chunk's (n_min, n_raw) as outputs: they
+    equal the rows K2 wrote in place into the counts tensor before, and
+    the stream and carry are those of K1 and K2 called directly."""
+    from rust_seq2kminmers_torch.ops.cuda.fused_scan import TILE, fused_minimizer_scan
+    from rust_seq2kminmers_torch.ops.cuda.slot_compact import slot_compact_counts
+
+    spec = PipelineSpec(l=11, k=3, density=0.05, mode=mode, hash_width=hash_width)
+    fam = "simd" if mode in ("simd", "hpcsimd") else "scalar"
+    rows = [encode_xcodes(_rand(np.random.default_rng(s), 6000), fam) for s in (8, 9)]
+    chunk, nchunks, B = 2048, 3, 2
+    lengths = np.array([6000, 6000])
+    step = port._chunk_step(spec, chunk)
+    m_cap = spec.capacity_for(chunk)
+    limit = torch.full((B,), port.HPC_LIMIT if spec.is_hpc else 6000 - spec.l,
+                       dtype=torch.int32)
+    base, carry = torch.zeros(B, dtype=torch.int32), torch.zeros((B, spec.l), dtype=torch.int32)
+    cacc = torch.full((nchunks, 2, B), -1, dtype=torch.int32)
+    staging = port._Staging(rows, chunk, torch.device("cpu"))
+    for ci in range(nchunks):
+        codes = torch.from_numpy(staging._fill(ci, np.empty((B, chunk), np.uint8)))
+        local = torch.from_numpy(np.clip(lengths - ci * chunk, 0, chunk).astype(np.int32))
+        *cols, n_min, n_raw, base_next, carry_next = step(codes, local, limit, base, carry)
+        st, en, hs, counts, carry_out = fused_minimizer_scan(
+            codes, local, limit, spec.l, spec.bound, spec.strict_threshold, spec.is_hpc,
+            spec.mode == "hpc", TILE, spec.cap_per_tile(TILE), spec.hash_width,
+            spec.variant, base0=base, carry0=carry, emit_carry=True)
+        (mst, men, mhs), _, _ = slot_compact_counts(
+            st, en, hs, counts, m_cap, fill=False, n_min=cacc[ci, 0], n_raw=cacc[ci, 1])
+        assert torch.equal(n_min, cacc[ci, 0]) and torch.equal(n_raw, cacc[ci, 1])
+        want = [mst, men, *((mhs[1], mhs[0]) if hash_width == 64 else (mhs,))]
+        assert len(cols) == len(want)
+        for b in range(B):
+            n = int(n_min[b])
+            for g, w in zip(cols, want):
+                assert torch.equal(g[b, :n], w[b, :n])
+        assert torch.equal(base_next, base + counts[:, :, 2].sum(dim=1, dtype=torch.int32))
+        assert torch.equal(carry_next, carry_out - (chunk << 3))
+        base, carry = base_next, carry_next
+    assert (cacc >= 0).all() and int(cacc[:, 0].sum()) > 0
+
+
+def _short_tail_seqs():
+    """A 6000-base read, one of 36 bases (a stream of 2 minimizers, fewer
+    than k = 5, at d = 0.3, l = 31) and one of 20 (not longer than l)."""
+    rng = np.random.default_rng(12)
+    return [_rand(rng, 6000), _rand(rng, 36), _rand(rng, 20)]
+
+
+DEVICE_ASSEMBLY_CASES = {
+    "unequal-batch": (lambda: _batch_seqs(5), dict(l=13, k=3, density=0.08, mode="hpcsimd")),
+    "few-minimizers": (_short_tail_seqs, dict(l=31, k=5, density=0.3, mode="regular")),
+    "u16": (lambda: [SEQS["mixed"](), SEQS["acgt700"]()],
+            dict(l=11, k=3, density=0.05, mode="hpc", hash_width=16)),
+    "u64": (lambda: [SEQS["mixed"](), SEQS["acgt700"]()],
+            dict(l=11, k=3, density=0.05, mode="regular", hash_width=64)),
+    "nthash2": (lambda: [SEQS["acgt6000"](), SEQS["acgt700"]()],
+                dict(l=45, k=2, density=0.05, mode="regular", variant="nthash2")),
+}
+
+
+@pytest.mark.parametrize("case", list(DEVICE_ASSEMBLY_CASES))
+def test_device_stream_assembly(case):
+    """K3 on the flat device-resident stream (the windows that straddle two
+    reads dropped) gives each read the records of ``assemble_stream`` over
+    its own minimizer stream, and the reference's."""
+    make, kw = DEVICE_ASSEMBLY_CASES[case]
+    seqs = make()
+    got = kminmers_long_batch(seqs, chunk=2048, device="cpu", **kw)
+    spec = PipelineSpec(**{k: v for k, v in kw.items()})
+    streams = port.minimizer_stream_long_batch(
+        [port._xcodes(s, spec.mode) for s in seqs], spec, chunk=2048, device="cpu")
+    want = jax_long.kminmers_long_batch(seqs, chunk=2048, interpret=True, **kw)
+    k = kw["k"]
+    for g, (st, en, mh), ref in zip(got, streams, want):
+        kh, rev = port.assemble_stream(mh, k, device="cpu")
+        nk = len(kh)
+        _assert_records(g, {"hash": kh, "start": st[:nk], "end": en[k - 1 :],
+                            "offset": np.arange(nk, dtype=np.int64), "rev": rev})
+        _assert_records(g, ref)
+    assert len(got[0]["hash"]) > 0
+    if case == "few-minimizers":
+        assert 0 < len(streams[1][0]) < k and len(got[1]["hash"]) == 0
+        assert len(streams[2][0]) == 0
 
 
 def test_prof_long_read_device_busy():
