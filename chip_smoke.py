@@ -41,12 +41,18 @@ In order, and any failure raises (exit code != 0):
      each also in the masked form that writes the k-min-mer fields, with
      per-row counts 0, k-1, k, M and random), K4 masked compaction (the
      dense packed HPC compaction, m = L, and a 3-column minimizer
-     compaction at a 1% mask), K4's HPC form (read from the xcodes), and
-     the general scan (hpcsimd nthash2 l=301 on the HPC form's stream,
-     regular u64 l=400, regular u32 l=1 at d=0.3);
+     compaction at a 1% mask), K4's HPC form (read from the xcodes), the
+     general scan (hpcsimd nthash2 l=301 on the HPC form's stream,
+     regular u64 l=400, regular u32 l=1 at d=0.3), and xcode, the
+     encoder of raw text (both families: [32, 2^20] full rows of every
+     byte value with runs, lowercase and N; the same rows with ragged
+     lengths, 0, 1, 15, 17 and random, and a row of xcodes passed
+     through; a [1, 2^25] long-read chunk whose byte before it is real,
+     aligned and as a view one byte past an allocation);
   4. reproduces the 15 u32 and 20 u64 golden hashes
      (tests/data/ecoli.genome.100k.fa, regular, l=10, k=5, d=0.0001) on
-     the card;
+     the card from the fixture's str, with the counters at zero: xcode
+     must have encoded it, once a call;
   5. runs each path through ``kminmers_batch`` (a replay of the path's
      captured graph, captured just before) with the launch counters
      set to zero just before and read just after: each path must launch
@@ -66,6 +72,8 @@ In order, and any failure raises (exit code != 0):
      device kernels a step, device time by kernel); times K4's two cases,
      its HPC form and the general scan beside their bounds and plain
      versions, and the general step beside its time before this design;
+     xcode's device time under the profiler at [32, 2^20] and [1, 2^25]
+     beside its bound and its plain version;
   7. checks K1 with a carry bit for bit against its plain version: chunk 2
      of [4, 2 x 4 Mbp] reads from the carry the kernel gave on chunk 1, for
      u32 hpcsimd l=31, u64 regular l=31 and nthash2 hpc l=201, and times
@@ -81,9 +89,13 @@ In order, and any failure raises (exit code != 0):
      2^23; on a 64 Mbp prefix, the same records as ``kminmers_batch`` on
      one [1, 2^26] row; two 150 Mbp reads batched equal their own runs;
      the same records with the eager chunk step; one capture per batch
-     size at chunk 2^25.  Prints the wall time, its GB/s, warm walls of
-     the compiled and the eager step in turns with a profiled call of
-     each (device busy, idle share, the graph's device-to-device copies),
+     size at chunk 2^25; the same read as an ASCII str (staged as raw
+     bytes and encoded by xcode on the card, the counters at zero: xcode
+     launched once a chunk) gives the same records.  Prints the wall time,
+     its GB/s, warm walls of the compiled and the eager step in turns with
+     a profiled call of each (device busy, idle share, the graph's
+     device-to-device copies), warm walls of the xcode and the str input
+     in turns with the producer's fill seconds,
      the memory a capture at [1, 2^25] holds, and K1's time per chunk.
      Then holds
      the long read's kernels bit for bit against their plain versions at
@@ -136,12 +148,14 @@ In order, and any failure raises (exit code != 0):
      alphabets, each sequence's records through ``kminmers_list`` on the
      card equal to ``backend="oracle"``; K1, K2 and K3 must have launched
      for the fused-route sequences, the general scan for the general-route
-     ones and K4's HPC form for those in an hpc mode.  Then the memory the
+     ones and K4's HPC form for those in an hpc mode, and xcode for every
+     sequence (each is a str, encoded on the card).  Then the memory the
      graphs hold: ``memory_reserved`` after the burn-in, and over a
      ``kminmers_batch`` sweep of 120 shapes with and without the cap on
      captured steps a pipeline keeps.
  14. runs the per-stage suite (``rust_seq2kminmers_torch/bench_suite.py``):
-     its 6 host rows, and its 9 device rows at [32, 2^20] with 16 steps a
+     its 9 host rows (the host library), and its 9 device rows at [32,
+     2^20] with 16 steps a
      unit, the counters at zero; a unit is one captured graph, so each
      case runs its capture's eager warm-up unit, one warm replay and 3
      timed replays, and the 8 pipeline cases must have launched K1, K2 and
@@ -169,6 +183,11 @@ is a JSON object with one entry per kernel (its launches on the paths,
 error, time, plain time, bound and what binds it; no PyTorch call computes
 any of these functions, so ``library_ms`` is null); the last is
 ``{"ok": true, "device": {...}}``.
+
+A profiler session that records no device event is run again, up to
+three sessions (``prof_long_read.device_events``); after three empty ones
+the line says the device time was not measured, and a kernel's time in
+the JSON line is its CUDA-event time.  Every check still holds.
 """
 
 import contextlib
@@ -211,6 +230,10 @@ KERNELS = {  # name -> (source, the TPU kernel or XLA code it replaces)
     "inrow_compact_mma": (
         "rust_seq2kminmers_torch/csrc/inrow_compact.cu",
         "scripts/prof_mxu_compact.py:91",
+    ),
+    "xcode": (  # no TPU kernel: the reference encodes on the host
+        "rust_seq2kminmers_torch/csrc/xcode.cu",
+        "rust_seq2kminmers_tpu/io/native/rle_kernels.h:368-409",
     ),
 }
 # Launch counters per kernel: K4 counts its masked form and its HPC form.
@@ -456,6 +479,18 @@ def long_read_codes():
     np.not_equal(seq[1:], seq[:-1], out=keep_bit[1:])
     seq |= keep_bit.view(np.uint8) << 3
     return seq
+
+
+def text_rows(seed, rows, length):
+    """uint8[rows, length] raw text: every byte value, with runs,
+    lowercase and N."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alphabet = np.concatenate([np.frombuffer(b"ACGTNacgtn", dtype=np.uint8),
+                               np.arange(256, dtype=np.uint8)])
+    n = rows * length
+    return np.repeat(rng.choice(alphabet, n), rng.integers(1, 6, n))[:n].reshape(rows, length)
 
 
 def ragged_batch(seed, rows, length):
@@ -931,7 +966,7 @@ def burnin_phase(dev) -> dict:
           "burn-in general-route sequences")
     for name, need in (("fused_scan", counts["fused"]), ("slot_compact", counts["fused"]),
                        ("assemble", counts["sequences"]), ("general_scan", counts["general"]),
-                       ("hpc_compact", counts["general_hpc"])):
+                       ("hpc_compact", counts["general_hpc"]), ("xcode", counts["sequences"])):
         check(ran.get(name, 0) >= need, f"the burn-in launched {name} {ran.get(name, 0)} "
               f"times for {need} sequences")
     return ran
@@ -1008,7 +1043,9 @@ def suite_phase(dev) -> dict:
     B, L = bs.batch_shape(SUITE_SIZE)
     cases = bs.pipeline_cases(L)
     check([r["case"] for r in rows] == ["nthash32_dense_l31"] + [c for c, _ in cases]
-          and len(host) == 6, "the suite's rows")
+          and len(host) == 9, "the suite's rows")
+    check(all(r["backend"].startswith(bs.host_backend()) for r in host),
+          "the suite's host rows name the host library that served them")
     check(all(r["backend"] == torch.cuda.get_device_name(0) and r["power_limit"]
               for r in rows), "the suite's rows name the card and its power limit")
     # A unit is one captured graph: its capture's warm-up runs one unit
@@ -1189,7 +1226,9 @@ def main():
         slot_compact_counts_plain,
         slot_compact_plain,
     )
+    from rust_seq2kminmers_torch.ops.cuda.xcode import encode_xcodes_cuda
     from rust_seq2kminmers_torch.ops.hpc import hpc_compress_packed, hpc_keep_mask
+    from rust_seq2kminmers_torch.ops.xcode import READ_START, XCODE_ROW, encode_xcodes_plain
     from rust_seq2kminmers_torch.ops import long_read
     from rust_seq2kminmers_torch.ops.long_read import minimizer_stream_long
     from rust_seq2kminmers_torch.ops.pipeline import (
@@ -1199,7 +1238,11 @@ def main():
     )
     from rust_seq2kminmers_torch.scripts import prof_mxu_compact as prof
     from rust_seq2kminmers_torch.scripts import prof_long_read
-    from rust_seq2kminmers_torch.scripts.prof_long_read import device_busy
+    from rust_seq2kminmers_torch.scripts.prof_long_read import (
+        NOT_MEASURED,
+        device_busy,
+        device_events,
+    )
 
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -1386,11 +1429,41 @@ def main():
         check(int(got[5].sum()) > 0, f"general scan {what} selected nothing")
         log(f"  general scan {what}: {int(got[5].sum())} minimizers selected, "
             f"m = {gs.capacity_for(L)}")
-    del got, want
+    # xcode at its callers' shapes: (raw, prev, lengths) by case.
+    text = torch.from_numpy(text_rows(SEED + 4, B, L)).to(dev)
+    rng_x = np.random.default_rng(SEED + 4)
+    ragged_len = rng_x.integers(0, L + 1, B).astype(np.int32)
+    ragged_len[:4] = [0, 1, 15, 17]
+    ragged_prev = np.full(B, READ_START, dtype=np.int32)
+    ragged_prev[4] = 65  # a row continuing after an 'A'
+    ragged_prev[-1] = XCODE_ROW
+    read_x = torch.from_numpy(text_rows(SEED + 5, 1, (1 << 25) + 1)).to(dev)
+    xcode_cases = {
+        f"[{B}, {L}] full rows": (text, torch.full((B,), READ_START, dtype=torch.int32,
+                                                   device=dev), lengths),
+        f"[{B}, {L}] ragged, a row of xcodes": (
+            text, torch.from_numpy(ragged_prev).to(dev), torch.from_numpy(ragged_len).to(dev)),
+        "[1, 2^25] long-read chunk, prev a real byte": (
+            read_x[:, 1:].clone(), read_x[:, 0].to(torch.int32),
+            torch.full((1,), 1 << 25, dtype=torch.int32, device=dev)),
+        # the same chunk as a view one byte past an allocation: byte accesses
+        "[1, 2^25] unaligned view, prev a real byte": (
+            read_x[:, 1:], read_x[:, 0].to(torch.int32),
+            torch.full((1,), 1 << 25, dtype=torch.int32, device=dev)),
+    }
+    for family in ("scalar", "simd"):
+        for what, args in xcode_cases.items():
+            record("xcode", f"{family} {what}", max_abs_err(
+                [encode_xcodes_cuda(*args, family)], [encode_xcodes_plain(*args, family)]))
+    del got, want, read_x
     torch.cuda.synchronize()
 
-    # 4. the goldens, on the card
+    counters = sorted({c for cs in COUNTERS.values() for c in cs})
+    launches = {c: 0 for c in counters}
+
+    # 4. the goldens, on the card, from the fixture's str; counters at 0
     seq = (REPO / "tests/data/ecoli.genome.100k.fa").read_text().split("\n")[1]
+    build.launches.clear()
     for name in ("goldens_u32.json", "goldens_u64.json"):
         golden = json.loads((REPO / "tests/data" / name).read_text())
         recs = kminmers_list(
@@ -1400,6 +1473,12 @@ def main():
         check([r.hash for r in recs] == golden["hashes"], name)
         log(f"goldens: {len(recs)} u{golden['hash_width']} k-min-mer hashes "
             "equal the reference's")
+    torch.cuda.synchronize()
+    ran = {c: build.launches[c] for c in counters}
+    log(f"goldens launches: {ran}")
+    check(ran["xcode"] == 2, f"the goldens' str was encoded {ran['xcode']} times, not 2")
+    for name in counters:
+        launches[name] += ran[name]
 
     # 5. each path through the user entry point, counters at 0 just before
     # (spec, counters launched once each, counters never launched)
@@ -1410,8 +1489,6 @@ def main():
                     ("fused_scan", "slot_compact", "masked_compact")),
         "u64": (u64_spec, ("fused_scan", "slot_compact", "assemble"), general_only),
     }
-    counters = sorted({c for cs in COUNTERS.values() for c in cs})
-    launches = {c: 0 for c in counters}
     for path, (ps, used, unused) in path_kernels.items():
         api._cached_pipeline(ps).capture(codes, lengths)  # so the run below replays
         build.launches.clear()
@@ -1624,9 +1701,6 @@ def main():
 
     # Device time under the profiler.  In key_averages() an aten:: row
     # repeats its kernels' time, so only the kernels' own events are summed.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     k2_keys = ("slot_compact_offsets", "slot_compact_copy")
     k3_keys = ("assemble_kernel",)
 
@@ -1639,15 +1713,14 @@ def main():
     def device_ms(fn, keys, reps=20):
         """(device ms, kernels, device ms by kernel) a call of fn, over the
         kernels whose names hold one of ``keys``, under the profiler after
-        a warm-up call."""
+        a warm-up call.  Where no profiler session recorded a device event,
+        (CUDA-event ms, None, {}): the CUDA events time the launches too."""
         fn(0)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            for i in range(reps):
-                fn(i)
-            torch.cuda.synchronize()
-        evs = [e for e in p.events() if e.device_type == DeviceType.CUDA
-               and any(k in e.name for k in keys)]
+        evs, _ = device_events(lambda: [fn(i) for i in range(reps)])
+        if not evs:
+            return time_ms(fn, reps), None, {}
+        evs = [e for e in evs if any(k in e.name for k in keys)]
         check(evs, f"the profiler recorded no kernel named {keys}")
         by_kernel = {}
         for e in evs:
@@ -1655,6 +1728,14 @@ def main():
             by_kernel[key] = by_kernel.get(key, 0.0) + (
                 e.time_range.end - e.time_range.start) / 1e3 / reps
         return sum(by_kernel.values()), len(evs) / reps, by_kernel
+
+    def timed_by(n_k, by_kernel=None) -> str:
+        """How device_ms timed a call."""
+        if n_k is None:
+            return f"CUDA events: {NOT_MEASURED}"
+        return f"{n_k:.0f} kernels a call; profiler" + (
+            ": " + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items())
+            if by_kernel else "")
 
     dev_ms = {
         "slot_compact main": (k2_main, k2_keys),
@@ -1671,7 +1752,7 @@ def main():
     for what, (fn, keys) in dev_ms.items():
         dev_ms[what] = device_ms(fn, keys)
         log(f"{what} on {card}: device {dev_ms[what][0]:.4f} ms a call "
-            f"({dev_ms[what][1]:.0f} kernels a call; profiler)")
+            f"({timed_by(dev_ms[what][1])})")
     k23_seen += [
         ("slot_compact main, device", dev_ms["slot_compact main"][0],
          "slot_compact main, device"),
@@ -1688,14 +1769,10 @@ def main():
     def profile_steps(ps):
         """10 steps of a path under the profiler: the busy time is the union
         of the kernels' and copies' spans."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tr:
-            t0 = time.perf_counter()
-            for i in range(10):
-                kminmer_pipeline(pool[i % 2], lengths, ps)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev_events = [e for e in tr.events() if e.device_type == DeviceType.CUDA]
-        check(dev_events, "the profiler recorded no device event")
+        dev_events, wall = device_events(
+            lambda: [kminmer_pipeline(pool[i % 2], lengths, ps) for i in range(10)])
+        if not dev_events:
+            return None
         busy, _ = device_busy(dev_events)
         per_kernel = {}
         for e in dev_events:
@@ -1705,7 +1782,11 @@ def main():
         return busy * 100, wall * 100, n_kernels / 10, len(dev_events) / 10, per_kernel
 
     for path in ("main", "general"):
-        busy, wall, n_k, n_ev, per_kernel = profile_steps(path_kernels[path][0])
+        prof_steps = profile_steps(path_kernels[path][0])
+        if prof_steps is None:
+            log(f"{path} path under the profiler on {card}: {NOT_MEASURED}")
+            continue
+        busy, wall, n_k, n_ev, per_kernel = prof_steps
         log(f"{path} path under the profiler on {card}: device busy {busy:.4f} ms a step "
             f"of {wall:.4f} ms wall (idle share {1 - busy / wall:.4f}); {n_k:.1f} device "
             f"kernels a step ({n_ev:.1f} device events); device ms a step "
@@ -1734,13 +1815,28 @@ def main():
         t_dev, n_k, by_kernel = device_ms(kern, ("kernel",))
         t_plain = time_ms(plain, 3, 1)
         k4_seen[what] = t_dev
-        log(f"{what} on {card}: device {t_dev:.4f} ms a call ({n_k:.0f} kernels; "
-            f"profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items())
-            + f"), {t_ev:.4f} ms (CUDA events); bound {bnd[0]:.4f} ms by {bnd[1]} "
+        log(f"{what} on {card}: device {t_dev:.4f} ms a call ({timed_by(n_k, by_kernel)}), "
+            f"{t_ev:.4f} ms (CUDA events); bound {bnd[0]:.4f} ms by {bnd[1]} "
             f"({bnd[0] / t_dev:.3f} of the bound reached); plain {t_plain:.4f} ms")
     ms["masked_compact"] = k4_seen["masked_compact HPC form"]
     ms["general_scan"] = k4_seen["general_scan hpcsimd nthash2 l=301"]
     k4_seen["general path step"] = general_step_ms
+    # xcode: its least work is 2 bytes a base (each raw byte read, each
+    # xcode written once) and 4 integer operations a base (the lookup, the
+    # compare, the OR, the length select).  Device time under the profiler:
+    # a launch's host time is longer than its device time.
+    for what in (f"[{B}, {L}] full rows", "[1, 2^25] long-read chunk, prev a real byte"):
+        args = xcode_cases[what]
+        n_x = args[0].numel()
+        bnd = bound(2 * n_x + 8 * args[0].shape[0] + 256, 4 * n_x)
+        t_dev, n_k, _ = device_ms(lambda i, a=args: encode_xcodes_cuda(*a, "simd"),
+                                  ("xcode_kernel",))
+        t_ev = time_ms(lambda i, a=args: encode_xcodes_cuda(*a, "simd"), 20)
+        t_plain = time_ms(lambda i, a=args: encode_xcodes_plain(*a, "simd"), 3, 1)
+        log(f"xcode {what} on {card}: device {t_dev:.4f} ms a call ({timed_by(n_k)}), "
+            f"{t_ev:.4f} ms (CUDA events); bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / t_dev:.3f} of the "
+            f"bound reached); plain {t_plain:.4f} ms")
+        ms["xcode"], plain_ms["xcode"], bounds["xcode"] = t_dev, t_plain, bnd
     extra = {
         "assemble xorshift u32, unmasked": (
             lambda i: assemble_kminmers_cuda(min_hash, spec.k),
@@ -1922,13 +2018,44 @@ def main():
             turns[way].append(time.perf_counter() - t0)
     for way in turns:
         with eager_step() if way == "eager" else contextlib.nullcontext():
-            p_wall, busy, _, _, by_name = prof_long_read.profile_call(
+            prof_call = prof_long_read.profile_call(
                 lambda: kminmers_long(seq, chunk=1 << 25, device=dev, **lr))
+        walls = ("the same records; warm walls "
+                 + ", ".join(f"{w:.4f}" for w in turns[way]) + " s")
+        if prof_call is None:
+            log(f"long read {way} chunk step on {card}: {walls}; {prof_long_read.NOT_MEASURED}")
+            continue
+        p_wall, busy, _, _, by_name = prof_call
         dtod = by_name.get("Memcpy DtoD (Device -> Device)", (0, 0.0))
-        log(f"long read {way} chunk step on {card}: the same records; warm walls "
-            + ", ".join(f"{w:.4f}" for w in turns[way]) + " s; profiled wall "
+        log(f"long read {way} chunk step on {card}: {walls}; profiled wall "
             f"{p_wall:.4f} s, device busy {busy:.4f} s, idle share {1 - busy / p_wall:.4f}; "
             f"device-to-device copies {dtod[1]:.4f} ms in {dtod[0]}")
+    # The same read as an ASCII str: staged as raw bytes, encoded by xcode
+    # on the card once a chunk; the counters at 0 just before.
+    text = prof_long_read.as_text(seq)
+    build.launches.clear()
+    text_recs = kminmers_long(text, chunk=1 << 25, device=dev, **lr)
+    torch.cuda.synchronize()
+    ran = {c: build.launches[c] for c in counters}
+    log(f"long read from a str: launches {ran}")
+    n_chunks = -(-N_LONG // (1 << 25))
+    check(ran["xcode"] == n_chunks, f"the str read launched xcode {ran['xcode']} times, "
+          f"not once a chunk ({n_chunks})")
+    for name in counters:
+        launches[name] += ran[name]
+    same(recs, text_recs, "the read as a str vs as xcodes")
+    del text_recs
+    text_turns = {"xcodes": [], "str": []}
+    for way in ("xcodes", "str", "str", "xcodes", "xcodes", "str"):
+        clock = long_read._Clock()
+        t0 = time.perf_counter()
+        long_read._records([seq if way == "xcodes" else text], lspec, 1 << 25, dev, clock)
+        text_turns[way].append((time.perf_counter() - t0, clock.fill_s))
+    for way, walls in text_turns.items():
+        log(f"long read {N_LONG} bases as {way} on {card}: the same records; warm walls "
+            + ", ".join(f"{w:.4f}" for w, _ in walls) + " s (in turns; the long-read path's "
+            "_records), the producer's fill " + ", ".join(f"{f:.4f}" for _, f in walls) + " s")
+    del text
     gm = prof_long_read.graph_memory(long_read, 1, dev)
     log(f"long read: a capture of the chunk step at [1, 2^25] holds {gm[1] - gm[0]:.1f} MiB "
         f"({gm[0]:.1f} -> {gm[1]:.1f} MiB reserved) on {card}")

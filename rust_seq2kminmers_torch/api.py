@@ -4,7 +4,8 @@
 mirror the reference package's surface (``hash_width``, ``variant``,
 ``strict_limits``, ``backend``); with ``backend="torch"`` (the default) a
 single read is padded to a power-of-two length and run through the
-batched pipeline on ``device``, and with ``backend="oracle"`` through the
+batched pipeline on ``device`` (text is encoded there, ``ops/cuda/xcode.py``),
+and with ``backend="oracle"`` through the
 numpy oracle (``oracle.py``, the semantic specification) on the host.
 ``kminmers_batch`` adds the overflow rescue to the compiled pipeline
 (``make_pipeline``, cached per spec as the reference caches its jitted
@@ -21,10 +22,12 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
-from .constants import MODES, XCODE_PAD, encode_xcodes, family_of_mode
+from .constants import MODES, XCODE_PAD, byte_view, family_of_mode
 from .oracle import HashMode, KminmerRecord
 from .oracle import kminmers as oracle_kminmers
+from .ops.cuda.xcode import encode_xcodes_cuda
 from .ops.pipeline import PipelineSpec, make_pipeline
+from .ops.xcode import READ_START
 from .ops.u64 import to_py_u64
 
 # Reference limits: the SIMD paths assert l <= 31, where 32-bit NtHash1
@@ -131,23 +134,23 @@ def kminmers_batch(codes, lengths, spec: PipelineSpec, max_retries: int = 8):
 
 
 def run_single(seq, spec: PipelineSpec, device: torch.device):
-    """One sequence (str, bytes or an integer array of xcodes), padded to
-    a power-of-two length, through ``kminmers_batch`` -> its one-row
-    KminmerBatch, or None when it is too short for a window."""
-    if isinstance(seq, np.ndarray) and np.issubdtype(seq.dtype, np.integer):
-        codes = seq.astype(np.uint8, copy=False)
-    else:
-        codes = encode_xcodes(seq, family_of_mode(spec.mode))
-    n = len(codes)
+    """One sequence (str, bytes-like text or an integer array of xcodes),
+    padded to a power-of-two length, through ``kminmers_batch`` -> its
+    one-row KminmerBatch, or None when it is too short for a window.  Text
+    goes to ``device`` as its bytes and is encoded there."""
+    xcodes = isinstance(seq, np.ndarray) and np.issubdtype(seq.dtype, np.integer)
+    data = seq.astype(np.uint8, copy=False) if xcodes else byte_view(seq)
+    n = len(data)
     if n <= spec.l:
         return None
     padded = np.full((1, _bucket_length(n)), XCODE_PAD, dtype=np.uint8)
-    padded[0, :n] = codes
-    return kminmers_batch(
-        torch.from_numpy(padded).to(device),
-        torch.tensor([n], dtype=torch.int32, device=device),
-        spec,
-    )
+    padded[0, :n] = data
+    codes = torch.from_numpy(padded).to(device)
+    lengths = torch.tensor([n], dtype=torch.int32, device=device)
+    if not xcodes:
+        start = torch.full((1,), READ_START, dtype=torch.int32, device=device)
+        codes = encode_xcodes_cuda(codes, start, lengths, family_of_mode(spec.mode))
+    return kminmers_batch(codes, lengths, spec)
 
 
 def kminmers_list(

@@ -47,13 +47,47 @@ def _bench_host(fn, data, reps=5):
     return float(np.median(ts))
 
 
+def host_backend() -> str:
+    """What serves the string calls: the host library, with its AVX-512
+    or its scalar collapse on this CPU, and the CPU's model name."""
+    from .io import native_ext
+
+    kind = "avx512" if native_ext.avx512()["rle"] else "scalar"
+    return f"host-native-c++ ({kind}; {cpu_model()})"
+
+
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo names it (Linux): its model name, then
+    vendor, family and model numbers (a virtual machine may hide the name),
+    or the platform's processor."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if not key.strip():
+                    break  # the first processor only
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        return platform.processor() or "unknown CPU"
+    return (f"{fields.get('model name', 'unknown')}, {fields.get('vendor_id', '?')} "
+            f"family {fields.get('cpu family', '?')} model {fields.get('model', '?')}")
+
+
 def host_cases(size: int):
     """The string-level HPC kernels (reference bench.rs:36-49) on random
-    ACGT, through ``hpc_strings`` (numpy).  Two rows a kernel: the median
-    of single calls (what one API call costs) and a steady loop of at
-    least 30 ms a timed repetition (criterion's method)."""
+    ACGT, through ``hpc_strings`` (the host library).  Three rows a
+    kernel: the median of single calls (what one API call costs), a
+    steady loop of at least 30 ms a timed repetition (criterion's method),
+    and the kernel alone, repeated inside the library for 50 ms into
+    reused buffers, best of 3 (no call overhead in the loop)."""
+    from .constants import byte_view
     from .hpc_strings import encode_rle, encode_rle_simd, hpc
+    from .io import native_ext
 
+    backend = host_backend()
     rng = np.random.default_rng(1)
     seq = "".join(rng.choice(list("ACGT"), size=size))
     for name, fn in [
@@ -66,7 +100,7 @@ def host_cases(size: int):
             "case": name,
             "value": size / dt / 1e9,
             "unit": "GB/s",
-            "backend": "host-numpy",
+            "backend": backend,
             "size": size,
         }
         iters = max(1, int(0.03 / max(dt, 1e-9)))
@@ -80,9 +114,26 @@ def host_cases(size: int):
             "case": f"{name}_steady",
             "value": size * iters / dts / 1e9,
             "unit": "GB/s",
-            "backend": "host-numpy",
+            "backend": backend,
             "size": size,
             "iters_per_rep": iters,
+        }
+    data = byte_view(seq)
+    for name, (collapse_any, wide, want_pos) in [
+        ("hpc_plain", (True, False, False)),
+        ("hpc_encode_rle", (False, True, True)),
+        ("hpc_encode_rle_simd", (True, False, True)),
+    ]:
+        best = 0.0
+        for _ in range(3):
+            iters, ns = native_ext.rle_loop(data, collapse_any, wide, want_pos, 50)
+            best = max(best, size * iters / max(ns, 1))
+        yield {
+            "case": f"{name}_native_loop",
+            "value": best,
+            "unit": "GB/s",
+            "backend": f"{backend}, in-library loop",
+            "size": size,
         }
 
 

@@ -1,9 +1,11 @@
-"""NtHash seeds, base codes, xcode layout and density bounds (numpy only).
+"""NtHash seeds, base codes, xcode layout and density bounds (numpy), and
+the byte view of a sequence's text.
 
 Copies of the parts of ``rust_seq2kminmers_tpu.constants`` that the port
 uses.  The reference package cannot be imported here: its ``__init__``
 loads jax.  ``tests/test_torch_constants.py`` holds every value below equal
-to the reference's.
+to the reference's.  ``encode_xcodes`` hands large inputs to the host
+library (``io/native_ext.py``), imported when first needed.
 
 Base codes: A=0 C=1 G=2 T=3 N=4, OTHER=5 (scalar-table default seed 1),
 PAD=6 (padding; seed 0).  An xcode is ``(keep << 3) | code``, where
@@ -12,6 +14,8 @@ run start; always set at position 0).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 
@@ -126,12 +130,53 @@ def with_keep_bits(codes: np.ndarray) -> np.ndarray:
     return (low | np.where(keep, XCODE_KEEP, 0)).astype(np.uint8)
 
 
-def _to_byte_array(seq: bytes | str | np.ndarray) -> np.ndarray:
+class _BorrowedBytes:
+    """A numpy array interface over ``n`` bytes at ``addr`` that keeps
+    their ``owner`` alive: the view's base holds this object."""
+
+    def __init__(self, owner, addr: int, n: int):
+        self.owner = owner
+        self.__array_interface__ = {
+            "data": (addr, True), "shape": (n,), "typestr": "|u1", "version": 3,
+        }
+
+
+_utf8_and_size = ctypes.pythonapi.PyUnicode_AsUTF8AndSize
+_utf8_and_size.restype = ctypes.c_void_p
+_utf8_and_size.argtypes = [ctypes.py_object, ctypes.POINTER(ctypes.c_ssize_t)]
+
+
+def byte_view(seq, utf8: bool = False) -> np.ndarray:
+    """A sequence's bytes as a read-only uint8 numpy array, with no copy
+    where the caller's memory can be read as it is.
+
+    An ASCII str is read in place: CPython keeps its characters as one
+    byte each and hands them out through ``PyUnicode_AsUTF8AndSize``
+    (for any other str that call would allocate and cache a UTF-8 copy).
+    Any other str is read as latin-1, one byte a character; a str outside
+    latin-1 raises ``UnicodeEncodeError``, or with ``utf8`` is read as its
+    UTF-8 bytes.  bytes, bytearray, memoryview and ndarrays are viewed as
+    bytes (a non-contiguous ndarray is copied)."""
     if isinstance(seq, str):
-        seq = seq.encode("latin-1")
+        if seq.isascii() and seq:
+            n = ctypes.c_ssize_t()
+            addr = _utf8_and_size(seq, ctypes.byref(n))
+            return np.asarray(_BorrowedBytes(seq, addr, n.value))
+        try:
+            seq = seq.encode("latin-1")
+        except UnicodeEncodeError:
+            if not utf8:
+                raise
+            seq = seq.encode()
+    if isinstance(seq, np.ndarray):
+        return np.ascontiguousarray(seq).reshape(-1).view(np.uint8)
+    return np.frombuffer(seq, dtype=np.uint8)
+
+
+def _to_byte_array(seq: bytes | str | np.ndarray) -> np.ndarray:
     if isinstance(seq, np.ndarray):
         return seq.astype(np.uint8, copy=False)
-    return np.frombuffer(bytes(seq), dtype=np.uint8)
+    return byte_view(seq)
 
 
 def encode_bases(seq: bytes | str | np.ndarray) -> np.ndarray:
@@ -141,12 +186,31 @@ def encode_bases(seq: bytes | str | np.ndarray) -> np.ndarray:
     return BYTE_TO_CODE[_to_byte_array(seq)]
 
 
+# Below this many bytes, encode_xcodes stays in numpy: a library call
+# costs more than it saves (the reference package's threshold).
+NATIVE_XCODE_MIN = 4096
+
+
 def encode_xcodes(
     seq: bytes | str | np.ndarray, family: str = "scalar"
 ) -> np.ndarray:
-    """ASCII sequence -> uint8 xcodes: (raw-byte-diff keep << 3) | code."""
-    b = _to_byte_array(seq)
-    codes = code_table(family)[b]
+    """ASCII sequence -> uint8 xcodes: (raw-byte-diff keep << 3) | code.
+    From ``NATIVE_XCODE_MIN`` bytes on, a str, bytes-like object or 1-D
+    uint8 ndarray is encoded by the host library (``io/native_ext.py``,
+    AVX-512 where the CPU has it), read in place; a library that does not
+    build raises."""
+    table = code_table(family)
+    if len(seq) >= NATIVE_XCODE_MIN and (
+        not isinstance(seq, np.ndarray) or (seq.ndim == 1 and seq.dtype == np.uint8)
+    ):
+        from .io import native_ext
+
+        return native_ext.xcode(_to_byte_array(seq), table)
+    return _encode_xcodes_numpy(_to_byte_array(seq), table)
+
+
+def _encode_xcodes_numpy(b: np.ndarray, table: np.ndarray) -> np.ndarray:
+    codes = table[b]
     if len(b) == 0:
         return codes
     keep = np.empty(len(b), dtype=bool)

@@ -1,4 +1,4 @@
-"""String-level homopolymer compression (host side, numpy).
+"""String-level homopolymer compression (host side).
 
 The reference crate's public HPC API (src/hpc.rs), with each function's
 own nuance:
@@ -11,8 +11,12 @@ own nuance:
                            (src/hpc.rs:44-147).
 
 A str is read as latin-1 (one byte a character) when it fits, else as
-UTF-8 bytes; the result decodes its bytes as latin-1.  The pipeline's own
-HPC compaction is on the device (``ops/hpc.py``, K4's HPC form).
+UTF-8 bytes; an ASCII str is read in place (``constants.byte_view``).
+The result decodes its bytes as latin-1.  The three run on the host
+library (``io/native_ext.py``, AVX-512 where the CPU has it); ``_rle``
+is their plain numpy version, which the tests hold the library against.
+The pipeline's own HPC compaction is on the device (``ops/hpc.py``, K4's
+HPC form).
 """
 
 from __future__ import annotations
@@ -21,21 +25,20 @@ from typing import Tuple
 
 import numpy as np
 
+from .constants import byte_view
+from .io import native_ext
+
 _RLE_COLLAPSIBLE = np.zeros(256, dtype=bool)
 _RLE_COLLAPSIBLE[np.frombuffer(b"ACTGactgNn", dtype=np.uint8)] = True
 
 
 def _to_bytes(s) -> np.ndarray:
-    if isinstance(s, str):
-        try:
-            s = s.encode("latin-1")
-        except UnicodeEncodeError:
-            s = s.encode()
-    return np.frombuffer(bytes(s), dtype=np.uint8)
+    return byte_view(s, utf8=True)
 
 
 def _rle(s, collapse_any: bool) -> Tuple[str, np.ndarray]:
-    """-> (kept characters as a str, their int64 positions)."""
+    """The plain version: -> (kept characters as a str, their int64
+    positions)."""
     b = _to_bytes(s)
     keep = np.ones(len(b), dtype=bool)
     keep[1:] = b[1:] != b[:-1]
@@ -47,24 +50,19 @@ def _rle(s, collapse_any: bool) -> Tuple[str, np.ndarray]:
 
 def hpc(s) -> str:
     """Collapse runs of any repeated character."""
-    if len(s) == 0:
-        return ""
-    return _rle(s, True)[0]
+    return native_ext.rle(_to_bytes(s), True, False, False)[0]
 
 
 def encode_rle(s) -> Tuple[str, np.ndarray]:
     """Collapse runs of ACTG/actg/N/n only; runs of other characters are
     kept verbatim.  -> (hpc string, int64 start positions of the kept
     characters)."""
-    if len(s) == 0:
-        return "", np.zeros(0, dtype=np.int64)
-    chars, pos = _rle(s, False)
-    return chars, pos.astype(np.int64, copy=False)
+    return native_ext.rle(_to_bytes(s), False, True, True)
 
 
 def encode_rle_simd(s) -> Tuple[str, np.ndarray]:
-    """Collapse runs of any byte; positions as uint32."""
-    if len(s) == 0:
-        return "", np.zeros(0, dtype=np.uint32)
-    chars, pos = _rle(s, True)
-    return chars, pos.astype(np.uint32)
+    """Collapse runs of any byte; positions as uint32 (32-bit positions in
+    the library below 2^31 bytes, 64-bit ones cut to 32 bits above)."""
+    b = _to_bytes(s)
+    chars, pos = native_ext.rle(b, True, len(b) >= 1 << 31, True)
+    return chars, pos.astype(np.uint32) if pos.dtype == np.int64 else pos.view(np.uint32)

@@ -3,32 +3,26 @@
 In place of the reference crate's rust-parallelfastx (mmap parsing with
 thread-parallel record dispatch, src/main.rs:79).  The native library,
 ``native/fasta_reader.cpp``, is built with g++ on first use into
-``native/build/`` (not committed), keyed by a hash of the source and the
-flags.  Each build writes a file of its own and renames it into place, so
-processes that build at once never load half a library.  A build that
-fails raises with g++'s output; ``FastaFile(..., prefer_native=False)``
-selects the Python parser.
+``native/build/`` (not committed; ``gxx.py``).  A build that fails raises
+with g++'s output; ``FastaFile(..., prefer_native=False)`` selects the
+Python parser.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..constants import BYTE_TO_CODE, CODE_PAD, XCODE_PAD, code_table, encode_xcodes
+from . import gxx
 
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 SOURCE = NATIVE_DIR / "fasta_reader.cpp"
 BUILD_DIR = NATIVE_DIR / "build"
-GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _P, _I64, _U8 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint8
 _SIGNATURES = {  # name -> (restype, argtypes)
@@ -45,44 +39,11 @@ _SIGNATURES = {  # name -> (restype, argtypes)
 }
 
 
-def _cpu_flags() -> bytes:
-    """The host CPU's feature flags (Linux), part of the library's key:
-    ``-march=native`` builds for the CPU at hand."""
-    try:
-        with open("/proc/cpuinfo", "rb") as f:
-            return next((ln for ln in f if ln.startswith(b"flags")), b"")
-    except OSError:
-        return b""
-
-
 @functools.lru_cache(maxsize=None)
 def native_library() -> ctypes.CDLL:
     """Build (once per source, flags and CPU) and load the reader; raises
     RuntimeError with g++'s output if the build fails."""
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode() + b"\0" + _cpu_flags() + b"\0"
-                            + SOURCE.read_bytes())
-    so = BUILD_DIR / f"libs2kfasta_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        try:
-            proc = subprocess.run(
-                ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                capture_output=True, text=True,
-            )
-        except OSError as e:
-            raise RuntimeError(f"cannot run g++ to build the FASTA reader: {e}") from e
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"g++ failed ({proc.returncode}) to build {SOURCE.name}:\n{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-    lib = ctypes.CDLL(str(so))
-    for name, (restype, argtypes) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = restype, argtypes
-    return lib
+    return gxx.build(SOURCE, BUILD_DIR, "libs2kfasta", _SIGNATURES)
 
 
 def _addr(a: np.ndarray) -> ctypes.c_void_p:

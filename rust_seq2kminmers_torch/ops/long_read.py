@@ -16,8 +16,11 @@ step, and many reads ride the same ``[B, chunk]`` steps with a
 The phases of a call:
 
   A. a producer thread stages chunk after chunk into pinned buffers
-     (``_Staging``), while this thread copies each staged chunk to the
-     device on a side stream and dispatches its step, with no host sync;
+     (``_Staging``), each read as it came: its raw bytes (a str or a
+     bytes-like object, read in place) or its xcodes (an integer array),
+     while this thread copies each staged chunk to the device on a side
+     stream, encodes the raw rows there (``ops/cuda/xcode.py``) and
+     dispatches the chunk's step, with no host sync;
   B. one fetch of every chunk's counts;
   C. chunks that lost survivors (a tile's or the stream's capacity) rerun
      from their saved carry-in on ``api.rescue_spec``, staged the same
@@ -32,7 +35,8 @@ and rev; the host only adds each chunk's offset to the positions and
 builds the dicts.  CUDA tensors launch the kernels; ``device="cpu"`` runs
 their plain versions, through the same producer thread.  The reference is
 ``rust_seq2kminmers_tpu/ops/long_read.py``; this module mirrors its
-functions, except that the codes go to the device unpacked (see
+functions, except that a read given as text is encoded on the device and
+not on the host, the codes go to the device unpacked (see
 ``minimizer_stream_long_batch``) and the assembly runs on the flat stream
 in one launch.
 """
@@ -50,13 +54,15 @@ import numpy as np
 import torch
 
 from ..api import _device, rescue_spec
-from ..constants import XCODE_PAD, encode_xcodes, family_of_mode
+from ..constants import XCODE_PAD, byte_view, family_of_mode
 from ..io import queues
 from .cuda.assemble_kernel import assemble_kminmers_cuda
 from .cuda.fused_scan import TILE, fused_minimizer_scan
 from .cuda.graph import CompiledStep
 from .cuda.slot_compact import slot_compact_counts
+from .cuda.xcode import encode_xcodes_cuda
 from .pipeline import PipelineSpec
+from .xcode import READ_START, XCODE_ROW
 
 # 32 Mbp a launch: K1's positions need chunk < 2^28, and the chunk's
 # outputs stay well under a GiB of device memory.
@@ -132,32 +138,57 @@ class _Staging:
     """The chunks of every read, padded with XCODE_PAD, staged by a
     producer thread ahead of the thread that dispatches them (``run``).
 
-    On a GPU: ``_STAGES`` slots, each a pinned host buffer and a device
-    buffer, allocated here, on the caller's thread.  The producer only
-    fills a free slot's host buffer through numpy and makes no CUDA call:
+    A row is staged as it came: xcodes, or with ``raw[b]`` set, the read's
+    raw bytes, which ``run`` encodes on the device (``family``'s table)
+    before it hands the chunk on.  For each chunk the producer also writes
+    each row's byte before the chunk (``READ_START`` at a read's start;
+    ``XCODE_ROW`` for a row of xcodes, which the encode copies).
+
+    On a GPU: ``_STAGES`` slots, each pinned host buffers and device
+    buffers, allocated here, on the caller's thread.  The producer only
+    fills a free slot's host buffers through numpy and makes no CUDA call:
     a graph capture (``capture_error_mode="global"``, ``ops/cuda/graph.py``)
     rejects CUDA calls from other threads.  The caller's thread copies the
-    buffer to the slot's device buffer on a side stream, after the compute
-    stream's last use of that device buffer, makes the compute stream wait
-    for the copy, and hands the slot back to the producer only after the
-    copy has completed.  On the CPU the producer fills a new array a
-    chunk."""
+    buffers to the slot's device buffers on a side stream, after the
+    compute stream's last use of them, makes the compute stream wait for
+    the copy, and hands the slot back to the producer only after the copy
+    has completed.  On the CPU the producer fills new arrays a chunk."""
 
-    def __init__(self, rows, chunk: int, device: torch.device, clock: _Clock | None = None):
+    def __init__(self, rows, chunk: int, device: torch.device, clock: _Clock | None = None,
+                 raw=None, family: str = "scalar"):
         self.rows, self.chunk, self.device = rows, chunk, device
         self.lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
         self.clock = clock or _Clock()
         self.cuda = device.type == "cuda"
+        B = len(rows)
+        self.raw_rows = np.flatnonzero(np.zeros(B, bool) if raw is None else raw)
+        self.family = family
+        # Each row's length in each chunk, [nchunks, B], on the device.
+        nchunks = -(-int(self.lengths.max(initial=0)) // chunk)
+        local = np.clip(self.lengths[None, :] - chunk * np.arange(nchunks)[:, None], 0, chunk)
+        self.local = torch.from_numpy(local.astype(np.int32)).to(device)
         if not self.cuda:
             return
-        B = len(rows)
         self.host = [torch.empty((B, chunk), dtype=torch.uint8, pin_memory=True)
                      for _ in range(_STAGES)]
         self.host_np = [h.numpy() for h in self.host]
         self.dev = [torch.empty((B, chunk), dtype=torch.uint8, device=device)
                     for _ in range(_STAGES)]
+        self.prev = [torch.empty((B,), dtype=torch.int32, pin_memory=True)
+                     for _ in range(_STAGES)]
+        self.prev_np = [p.numpy() for p in self.prev]
+        self.prev_dev = [torch.empty((B,), dtype=torch.int32, device=device)
+                         for _ in range(_STAGES)]
         self.used = [None] * _STAGES  # event: compute's last read of dev[s]
         self.stream = torch.cuda.Stream(device)
+
+    def _before(self, ci: int, out: np.ndarray) -> np.ndarray:
+        """Each row's byte before chunk ci into ``out`` int32[B]."""
+        lo = ci * self.chunk
+        out[:] = XCODE_ROW
+        for b in self.raw_rows:
+            out[b] = self.rows[b][lo - 1] if 0 < lo <= self.lengths[b] else READ_START
+        return out
 
     def _fill(self, ci: int, buf: np.ndarray) -> np.ndarray:
         """Chunk ci of every read into ``buf`` [B, chunk]: a read's bases,
@@ -173,29 +204,33 @@ class _Staging:
         return buf
 
     def _produce(self, ids, free, ready, stop) -> None:
-        """Fill chunk after chunk of ``ids`` into a free slot (GPU) or a
-        new array (CPU) and put (slot, buffer) into ``ready``; an exception
-        is put there instead, for the caller's thread to raise."""
+        """Fill chunk after chunk of ``ids`` into a free slot (GPU) or new
+        arrays (CPU) and put (slot, buffer, bytes before) into ``ready``; an
+        exception is put there instead, for the caller's thread to raise."""
         try:
             for ci in ids:
                 if free is None:
-                    slot, buf = None, np.empty((len(self.rows), self.chunk), dtype=np.uint8)
+                    slot = None
+                    buf = np.empty((len(self.rows), self.chunk), dtype=np.uint8)
+                    before = np.empty(len(self.rows), dtype=np.int32)
                 else:
                     slot = queues.get(free, stop)
                     if slot is None:
                         return  # stopped
-                    buf = self.host_np[slot]
+                    buf, before = self.host_np[slot], self.prev_np[slot]
                 t0 = time.perf_counter()
                 self._fill(ci, buf)
+                self._before(ci, before)
                 self.clock.fill_s += time.perf_counter() - t0
-                if not queues.put(ready, (slot, buf), stop):
+                if not queues.put(ready, (slot, buf, before), stop):
                     return
         except Exception as e:  # handed to the caller's thread, which raises it
             queues.put(ready, e, stop)
 
     def run(self, ids, dispatch) -> None:
         """``dispatch(ci, codes)`` on this thread for each chunk index of
-        ``ids``, in order, with ``codes`` uint8[B, chunk] on the device,
+        ``ids``, in order, with ``codes`` uint8[B, chunk] xcodes on the
+        device (the raw rows encoded on the compute stream just before),
         while the producer stages the chunks after it.  The producer's
         exception is raised here; an exception here stops the producer,
         which is joined before ``run`` returns, on every path."""
@@ -227,21 +262,25 @@ class _Staging:
                 clock.lap("A: wait for a staged chunk")
                 if isinstance(item, Exception):
                     raise item
-                slot, buf = item
+                slot, buf, before = item
                 if not self.cuda:
-                    dispatch(ci, torch.from_numpy(buf))
+                    dispatch(ci, self._encode(ci, torch.from_numpy(buf), torch.from_numpy(before)))
                     clock.lap("A: dispatch")
                     continue
                 with torch.cuda.stream(self.stream):
                     if self.used[slot] is not None:
                         self.stream.wait_event(self.used[slot])
                     self.dev[slot].copy_(self.host[slot], non_blocking=True)
+                    if self.raw_rows.size:
+                        self.prev_dev[slot].copy_(self.prev[slot], non_blocking=True)
                     copied = torch.cuda.Event()
                     copied.record(self.stream)
                 compute.wait_event(copied)
                 pending.append((copied, slot))
                 clock.lap("A: H2D issue")
-                dispatch(ci, self.dev[slot])
+                codes = self._encode(ci, self.dev[slot], self.prev_dev[slot])
+                clock.lap("A: encode issue")
+                dispatch(ci, codes)
                 self.used[slot] = torch.cuda.Event()
                 self.used[slot].record(compute)
                 clock.lap("A: dispatch")
@@ -251,6 +290,13 @@ class _Staging:
             stop.set()
             producer.join()
         clock.lap("A: hand back")
+
+    def _encode(self, ci: int, staged: torch.Tensor, before: torch.Tensor) -> torch.Tensor:
+        """The staged chunk ci as xcodes: a batch with raw rows is encoded
+        (one launch), one of xcodes only is handed on as it is."""
+        if not self.raw_rows.size:
+            return staged
+        return encode_xcodes_cuda(staged, before, self.local[ci], self.family)
 
     @staticmethod
     def _next(ready: queue.Queue, producer: threading.Thread):
@@ -277,13 +323,27 @@ def _capture(step, B: int, chunk: int, l: int, limit: torch.Tensor) -> None:
                      zeros(B), limit, zeros(B), zeros((B, l)))
 
 
-def _streams(rows, spec: PipelineSpec, chunk: int, device: torch.device, clock: _Clock):
-    """Phases A-D over the reads ``rows`` (uint8[n_b] xcode arrays) -> None
+def _rows(seqs):
+    """-> (one uint8 array a read, which of them are raw bytes): an
+    integer ndarray holds xcodes; a str, bytes, bytearray or memoryview
+    is the read's text, viewed in place where it can be
+    (``constants.byte_view``; a str outside latin-1 raises)."""
+    rows, raw = [], []
+    for s in seqs:
+        xc = isinstance(s, np.ndarray) and np.issubdtype(s.dtype, np.integer)
+        rows.append(s.astype(np.uint8, copy=False) if xc else byte_view(s))
+        raw.append(not xc)
+    return rows, raw
+
+
+def _streams(seqs, spec: PipelineSpec, chunk: int, device: torch.device, clock: _Clock):
+    """Phases A-D over the reads ``seqs`` (each text or xcodes, ``_rows``) -> None
     when no read is longer than l, else (flat, nm, chunk): flat int32[ncols,
     total] on ``device``, every read's valid minimizers, read after read
     and chunk after chunk, as rows start, end (positions in their chunk),
     hash lo[, hash hi]; nm int[nchunks, B] the counts; chunk rounded up to
     a multiple of 1024."""
+    rows, raw = _rows(seqs)
     lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
     B = len(rows)
     n_max = int(lengths.max(initial=0))
@@ -297,13 +357,12 @@ def _streams(rows, spec: PipelineSpec, chunk: int, device: torch.device, clock: 
     chunk = -(-max(int(chunk), 1024) // 1024) * 1024
     nchunks = -(-n_max // chunk)
     limit_h = np.where(lengths > l, HPC_LIMIT if spec.is_hpc else lengths - l, -1)
-    local = np.clip(lengths[None, :] - chunk * np.arange(nchunks)[:, None], 0, chunk)
-    local_d = torch.from_numpy(local.astype(np.int32)).to(device)  # [nchunks, B]
     limit = torch.from_numpy(limit_h.astype(np.int32)).to(device)
+    staging = _Staging(rows, chunk, device, clock, raw, family_of_mode(spec.mode))
+    local_d = staging.local  # [nchunks, B]
     step_for = _compiled_chunk_step if device.type == "cuda" else _chunk_step
     step = step_for(spec, chunk)
     _capture(step, B, chunk, l, limit)
-    staging = _Staging(rows, chunk, device, clock)
     clock.lap("set-up")
 
     # Phase A: every chunk dispatched; the carry chains on the device.  The
@@ -415,16 +474,16 @@ def _reads(nm: np.ndarray):
 
 
 def minimizer_stream_long_batch(
-    rows,  # sequence of uint8[n_b] xcode arrays (one per read)
+    rows,  # one read each: str / bytes-like text, or an integer array of xcodes
     spec: PipelineSpec,
     chunk: int = DEFAULT_CHUNK,
     device="cuda",
 ):
     """-> list of (start int64, end int64, hash) numpy triples, one per
     read: its whole ordered minimizer stream, positions in the read.  The
-    hash is uint16, uint32 or uint64 by ``spec.hash_width``.  The codes go
-    to the device one byte a base, as they are: packing two a byte on the
-    host cost more time than the halved copy saved."""
+    hash is uint16, uint32 or uint64 by ``spec.hash_width``.  The bytes go
+    to the device one a base, as they are (text is encoded there): packing
+    two a byte on the host cost more time than the halved copy saved."""
     device = _device(device)
     hdt = {16: np.uint16, 32: np.uint32, 64: np.uint64}[spec.hash_width]
     found = _streams(rows, spec, chunk, device, _Clock())
@@ -441,7 +500,7 @@ def minimizer_stream_long_batch(
 
 
 def minimizer_stream_long(
-    codes: np.ndarray,  # uint8[n] xcodes of ONE read
+    codes,  # ONE read: str / bytes-like text, or an integer array of xcodes
     spec: PipelineSpec,
     chunk: int = DEFAULT_CHUNK,
     device="cuda",
@@ -481,12 +540,6 @@ def assemble_stream(
     return h, rev[0].cpu().numpy()
 
 
-def _xcodes(seq, mode: str) -> np.ndarray:
-    if isinstance(seq, np.ndarray) and np.issubdtype(seq.dtype, np.integer):
-        return seq.astype(np.uint8, copy=False)
-    return encode_xcodes(seq, family_of_mode(mode))
-
-
 def _no_records() -> dict:
     return {
         "hash": np.zeros(0, np.uint64),
@@ -497,18 +550,18 @@ def _no_records() -> dict:
     }
 
 
-def _records(rows, spec: PipelineSpec, chunk: int, device: torch.device,
+def _records(seqs, spec: PipelineSpec, chunk: int, device: torch.device,
              clock: _Clock | None = None) -> list:
-    """One records dict per read of ``rows``: phases A-D, then K3 on the
+    """One records dict per read of ``seqs``: phases A-D, then K3 on the
     device-resident flat stream in one launch (the windows that straddle
     two reads are computed and dropped: a window's hash depends only on
     its own elements), then one pinned fetch of each window's start, end,
     hash (hi, lo) and rev."""
     clock = clock or _Clock()
-    found = _streams(rows, spec, chunk, device, clock)
+    found = _streams(seqs, spec, chunk, device, clock)
     k = spec.k
     if found is None or found[0].shape[1] < k:
-        return [_no_records() for _ in rows]
+        return [_no_records() for _ in seqs]
     flat, nm, chunk = found
     nwin = flat.shape[1] - k + 1
     hi = flat[3:4] if spec.hash_width == 64 else None
@@ -550,7 +603,7 @@ def kminmers_long(
     """All k-min-mers of ONE long read as a struct-of-arrays dict {hash
     uint64, start, end, offset int64, rev bool}[n_kminmers], for reads
     past one launch's length cap (up to 2^31 - 1 bases).  ``seq`` is str,
-    bytes or an integer array of xcodes."""
+    bytes or an integer array of xcodes; text is encoded on ``device``."""
     return kminmers_long_batch(
         [seq], l, k, density, mode=mode, variant=variant, chunk=chunk, device=device,
         hash_width=hash_width,
@@ -573,5 +626,4 @@ def kminmers_long_batch(
     spec = PipelineSpec(
         l=l, k=k, density=density, mode=mode, variant=variant, hash_width=hash_width,
     )
-    rows = [_xcodes(s, mode) for s in seqs]
-    return _records(rows, spec, chunk, _device(device))
+    return _records(list(seqs), spec, chunk, _device(device))

@@ -82,25 +82,17 @@ def host_ms(fn, reps=20) -> float:
     return t / reps * 1e3
 
 
-def profiled(fn, reps=10) -> dict:
+def profiled(fn, reps=10):
     """reps calls under the profiler -> device busy ms a call, idle share,
-    device kernels a call, and device ms a call of HANDOFF_KEYS' events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from rust_seq2kminmers_torch.scripts.prof_long_read import device_busy
+    device kernels a call, and device ms a call of HANDOFF_KEYS' events;
+    None where no session recorded a device event."""
+    from rust_seq2kminmers_torch.scripts.prof_long_read import device_busy, device_events
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    evs = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    evs, wall = device_events(lambda: [fn(i) for i in range(reps)])
     if not evs:
-        raise RuntimeError("the profiler recorded no device event")
+        return None
     busy, _ = device_busy(evs)
     out = {
         "busy_ms": busy / reps * 1e3,
@@ -220,16 +212,20 @@ def main() -> int:
 
 def describe(path: str, r: dict) -> str:
     """One line of ``measure_path``'s numbers."""
+    from rust_seq2kminmers_torch.scripts.prof_long_read import NOT_MEASURED
+
     pe, pg = r["profile"]["eager"], r["profile"]["graph"]
+    eager = (NOT_MEASURED if pe is None else f"{pe['busy_ms']:.4f} (idle share "
+             f"{pe['idle_share']:.4f}, {pe['kernels']:.1f} kernels)")
+    graph = (NOT_MEASURED if pg is None else f"{pg['busy_ms']:.4f} (idle share "
+             f"{pg['idle_share']:.4f}, {pg['kernels']:.1f} kernels; input copy "
+             f"{pg['input copy_ms']:.4f} ms, handoff {pg['handoff_ms']:.4f} ms)")
     return (
         f"{path} path [{B}, {L}]: capture {r['capture_s']:.4f} s holding "
         f"{r['pool_mib']:.1f} MiB; CUDA-event step ms in turns "
         + ", ".join(f"{w} {t:.4f}" for w, t in r["event_ms"])
         + "; host ms to issue a step " + ", ".join(f"{w} {t:.4f}" for w, t in r["host_ms"])
-        + f"; device busy ms a step eager {pe['busy_ms']:.4f} (idle share "
-        f"{pe['idle_share']:.4f}, {pe['kernels']:.1f} kernels), graph {pg['busy_ms']:.4f} "
-        f"(idle share {pg['idle_share']:.4f}, {pg['kernels']:.1f} kernels; input copy "
-        f"{pg['input copy_ms']:.4f} ms, handoff {pg['handoff_ms']:.4f} ms)"
+        + f"; device busy ms a step eager {eager}, graph {graph}"
     )
 
 

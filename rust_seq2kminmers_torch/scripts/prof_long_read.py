@@ -3,23 +3,26 @@ read through ``kminmers_long`` (hpcsimd, l=31, k=5, d=0.01, chunk 2^25),
 and with ``--reads 2`` two 150 Mbp reads through ``kminmers_long_batch``.
 
     python -m rust_seq2kminmers_torch.scripts.prof_long_read [--reads 2] [--parent DIR]
+        [--text]
 
 The path runs two ways in turns: with its compiled chunk step (a captured
 CUDA graph), and with the eager chunk step (``_compiled_chunk_step``
-patched to ``_chunk_step``).  ``--parent DIR`` adds a third: the package
-of another checkout (the PR 11 tree, unpacked by ``git archive``),
+patched to ``_chunk_step``).  ``--parent DIR`` adds the package of
+another checkout (the parent commit, unpacked by ``git archive``),
 imported as ``s2k_parent``, on the same read in the same process.
+``--text`` adds the same reads given as ASCII strs, which the path stages
+as raw bytes and encodes on the card (and, with ``--parent``, the other
+checkout's package given those strs).
 
   1. the memory a capture of the chunk step holds at [1, 2^25] and [2,
      2^25]: ``memory_reserved`` before and after, the cache emptied;
   2. a warm-up call of each way (the kernels' build, the capture);
   3. three host-clock walls of each way's whole call, in turns, staging,
      transfers and assembly included; every call's records equal;
-  4. each way's call split part by part on the host clock (three times),
-     with a sync only where the path itself syncs: the driver's own
-     ``_Clock`` laps, and for the PR 11 driver ``split_pr11``, a twin of
-     that driver with a lap at each boundary (its records must equal the
-     real call's); phase A's host issue is its H2D issue and dispatch;
+  4. each way of this tree split part by part on the host clock (three
+     times), with a sync only where the path itself syncs: the path's
+     own ``_Clock`` laps and the producer's fill seconds; phase A's host
+     issue is its H2D issue, encode issue and dispatch;
   5. the host's staging alone, as the path does it: ``_Staging._fill``
      into one pinned buffer that was already touched, over every chunk;
   6. one call of each way under ``torch.profiler``: the device's busy
@@ -64,6 +67,11 @@ def random_read(n: int, seed: int = 9) -> np.ndarray:
     return seq
 
 
+def as_text(codes: np.ndarray) -> str:
+    """The ASCII str of a read of ACGT xcodes: the same read as text."""
+    return np.frombuffer(b"ACGT", dtype=np.uint8)[codes & 7].tobytes().decode("ascii")
+
+
 def device_busy(events) -> tuple:
     """(union, sum) in seconds of the device events' time ranges."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -78,6 +86,37 @@ def device_busy(events) -> tuple:
     return union / 1e6, sum(e - s for s, e in spans) / 1e6
 
 
+PROFILE_TRIES = 3
+
+
+def device_events(fn, tries: int = PROFILE_TRIES) -> tuple:
+    """fn() under torch.profiler, then a device sync -> (the device events,
+    the host-clock seconds of the traced call).  Now and then a session
+    late in a long process records no device event at all (CUPTI hands
+    none over; seen on an H100); such a session is run again in a new one,
+    up to ``tries`` sessions.  After those the events are [] and the caller
+    reports the device time as not measured, or times by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for session in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events, wall
+        print(f"profiler session {session} of {tries} recorded no device event",
+              file=sys.stderr, flush=True)
+    return [], wall
+
+
+NOT_MEASURED = (f"device time not measured (the profiler recorded no device event in "
+                f"{PROFILE_TRIES} sessions)")
+
+
 def load_package(root: Path, name: str):
     """``rust_seq2kminmers_torch`` of the checkout at ``root``, imported as
     ``name`` (its modules import each other relatively)."""
@@ -90,94 +129,6 @@ def load_package(root: Path, name: str):
     return module
 
 
-def split_pr11(pkg, rows, chunk, dev, l, k, density, mode):
-    """One ``kminmers_long_batch`` call of the PR 11 driver
-    (``ops/long_read.py`` at commit 581692b: fills on the main thread, the
-    eager chunk step, a pageable phase-D fetch, then per read
-    ``_records_from_stream`` through ``assemble_stream``), its statements
-    in order with a lap at each boundary -> (records, {part: seconds}).
-    Covers the call without a rescue (it raises if a chunk overflowed)."""
-    lr = importlib.import_module(pkg.__name__ + ".ops.long_read")
-    from_k1 = importlib.import_module(pkg.__name__ + ".ops.cuda.fused_scan")
-    k3 = importlib.import_module(pkg.__name__ + ".ops.cuda.assemble_kernel")
-    clock = _Clock()
-    spec = lr.PipelineSpec(l=l, k=k, density=density, mode=mode)
-    lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
-    B = len(rows)
-    nchunks = -(-int(lengths.max()) // chunk)
-    limit_h = np.where(lengths > l, lr.HPC_LIMIT if spec.is_hpc else lengths - l, -1)
-    local = np.clip(lengths[None, :] - chunk * np.arange(nchunks)[:, None], 0, chunk)
-    local_d = torch.from_numpy(local.astype(np.int32)).to(dev)
-    limit = torch.from_numpy(limit_h.astype(np.int32)).to(dev)
-    m_cap = spec.capacity_for(chunk)
-    step = lr._chunk_step(spec, chunk, spec.cap_per_tile(from_k1.TILE), m_cap)
-    base = torch.zeros(B, dtype=torch.int32, device=dev)
-    carry = torch.zeros((B, l), dtype=torch.int32, device=dev)
-    cacc = torch.empty((nchunks, 2, B), dtype=torch.int32, device=dev)
-    st = lr._Staging(rows, chunk, dev)
-    clock.lap("set-up")
-    per_chunk = []
-    for ci in range(nchunks):  # _Staging.upload, then the step
-        s = ci % lr._STAGES
-        if st.copied[s] is not None:
-            st.copied[s].synchronize()
-        clock.lap("A: wait for a pinned buffer's copy")
-        st._fill(ci, st.host[s].numpy())
-        clock.lap("A: fill (main thread)")
-        with torch.cuda.stream(st.stream):
-            if st.used[s] is not None:
-                st.stream.wait_event(st.used[s])
-            st.dev[s].copy_(st.host[s], non_blocking=True)
-            st.copied[s] = torch.cuda.Event()
-            st.copied[s].record(st.stream)
-        torch.cuda.current_stream(dev).wait_event(st.copied[s])
-        clock.lap("A: H2D issue")
-        mst, men, mhs, base, carry = step(st.dev[s], local_d[ci], limit, base, carry,
-                                          cacc, ci)
-        st.release(ci)
-        per_chunk.append([mst, men, mhs])
-        clock.lap("A: step dispatch")
-    counts = cacc.cpu().numpy()
-    clock.lap("B: wait + count fetch")
-    nm, nr = counts[:, 0].copy(), counts[:, 1]
-    if (nm < nr).any():
-        raise RuntimeError("a chunk overflowed: the twin covers no rescue")
-    ncols = 3
-    pieces = [per_chunk[ci][col][b, : int(nm[ci, b])]
-              for col in range(ncols) for b in range(B) for ci in range(nchunks)
-              if nm[ci, b]]
-    total = int(nm.sum())
-    flat_d = torch.cat(pieces)
-    clock.lap("D: gather (enqueue)")
-    flat = flat_d.cpu().numpy().reshape(ncols, total)
-    clock.lap("D: fetch (pageable)")
-    streams = []
-    ends = np.cumsum(nm.sum(axis=0))
-    for b in range(B):
-        seg = flat[:, ends[b] - nm[:, b].sum() : ends[b]]
-        off = np.repeat(np.arange(nchunks, dtype=np.int64) * chunk, nm[:, b])
-        streams.append((seg[0] + off, seg[1] + off, seg[2].view(np.uint32)))
-    clock.lap("D: per-read stitch")
-    out = []
-    for start, end, mhash in streams:  # _records_from_stream, assemble_stream
-        nk = max(int(mhash.shape[0]) - (k - 1), 0)
-        row = mhash.astype(np.uint64)[None, :]
-        lo_h = (row & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
-        clock.lap("asm: host preparation")
-        lo = torch.from_numpy(lo_h).to(dev)
-        clock.lap("asm: H2D")
-        (khi, klo), rev = k3.assemble_kminmers_cuda(lo, k, 32, None)
-        clock.lap("asm: K3 enqueue")
-        h = (khi[0].cpu().numpy().view(np.uint32).astype(np.uint64) << np.uint64(32)) | (
-            klo[0].cpu().numpy().view(np.uint32))
-        r = rev[0].cpu().numpy()
-        clock.lap("asm: fetches")
-        out.append({"hash": h, "start": start[:nk], "end": end[k - 1 :],
-                    "offset": np.arange(nk, dtype=np.int64), "rev": r})
-        clock.lap("records: dicts")
-    return out, dict(clock.parts)
-
-
 def same_records(a, b) -> bool:
     return len(a) == len(b) and all(
         x.keys() == y.keys() and all(
@@ -185,19 +136,13 @@ def same_records(a, b) -> bool:
         for x, y in zip(a, b))
 
 
-def profile_call(fn) -> tuple:
+def profile_call(fn):
     """fn() once under torch.profiler -> (wall s, device busy s, summed s,
-    events, {name: (count, ms)})."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events, {name: (count, ms)}), or None where no session recorded a
+    device event."""
+    events, wall = device_events(fn)
     if not events:
-        raise RuntimeError("the profiler recorded no device event")
+        return None
     union, summed = device_busy(events)
     by_name = {}
     for e in events:
@@ -227,6 +172,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reads", type=int, default=1, choices=(1, 2))
     ap.add_argument("--parent", default=None)
+    ap.add_argument("--text", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU: torch.cuda.is_available() is false", file=sys.stderr)
@@ -251,9 +197,11 @@ def main() -> int:
               f"{before:.1f} -> {after:.1f} MiB reserved (+{after - before:.1f})",
               flush=True)
 
-    def new_split():
+    texts = [as_text(r) for r in rows] if args.text else None
+
+    def new_split(reads=rows):
         clock = _Clock()
-        got = lr._records(rows, lr.PipelineSpec(**ARGS), CHUNK, dev, clock)
+        got = lr._records(reads, lr.PipelineSpec(**ARGS), CHUNK, dev, clock)
         return got, {**clock.parts, "fill (producer, overlapped)": clock.fill_s}
 
     def eager(fn):
@@ -267,11 +215,17 @@ def main() -> int:
 
     calls = {"compiled": call, "eager step": eager(call)}
     splits = {"compiled": new_split, "eager step": eager(new_split)}
+    if texts:
+        calls["text input"] = lambda: here.kminmers_long_batch(
+            texts, chunk=CHUNK, device=dev, **ARGS)
+        splits["text input"] = lambda: new_split(texts)
     if args.parent:
         parent = load_package(Path(args.parent).resolve(), "s2k_parent")
-        calls["PR 11 tree"] = lambda: parent.kminmers_long_batch(
+        calls["parent tree"] = lambda: parent.kminmers_long_batch(
             rows, chunk=CHUNK, device=dev, **ARGS)
-        splits["PR 11 tree"] = lambda: split_pr11(parent, rows, CHUNK, dev, **ARGS)
+        if texts:
+            calls["parent tree, text input"] = lambda: parent.kminmers_long_batch(
+                texts, chunk=CHUNK, device=dev, **ARGS)
     for label, call in calls.items():
         t0 = time.perf_counter()
         call()
@@ -298,7 +252,7 @@ def main() -> int:
             if not same_records(got, want):
                 raise RuntimeError(f"{label}: the split call's records differ")
             host_a = sum(v for k, v in parts.items()
-                         if k in ("A: H2D issue", "A: step dispatch", "A: dispatch"))
+                         if k in ("A: H2D issue", "A: encode issue", "A: dispatch"))
             print(f"{label} split (host clock, s): total "
                   f"{sum(v for k, v in parts.items() if not k.startswith('fill')):.4f}; "
                   f"phase A host issue {host_a:.4f}; "
@@ -315,7 +269,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.4f} s", flush=True)
 
     for label, call in calls.items():
-        wall, union, summed, n_ev, by_name = profile_call(call)
+        prof = profile_call(call)
+        if prof is None:
+            print(f"{label}: {NOT_MEASURED}")
+            continue
+        wall, union, summed, n_ev, by_name = prof
         print(f"{label}: profiled wall {wall:.4f} s; device busy {union:.4f} s (union of "
               f"{n_ev} kernels and copies; summed {summed:.4f} s); idle share "
               f"{1 - union / wall:.4f}")

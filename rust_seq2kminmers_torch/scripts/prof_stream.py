@@ -37,7 +37,7 @@ import torch
 
 from ..io.stream import StreamingRunner
 from ..ops.pipeline import PipelineSpec
-from .prof_long_read import device_busy
+from .prof_long_read import NOT_MEASURED, device_busy, device_events
 from .prof_mxu_compact import card
 
 SEED = 11
@@ -114,21 +114,22 @@ def write_fasta(path, reads: Reads, count=None) -> int:
 
 def run(path, spec, device, profiled=False):
     """One streaming run -> (stats, the ordered records, profile): profile
-    is None, or (wall s, device busy s, idle share, {kernel: device ms})."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    is None, or (wall s, device busy s, idle share, {kernel: device ms}),
+    or () where no profiler session recorded a device event."""
     if not profiled:
         with StreamingRunner(path, spec, device=device) as r:
             stats = r.run()
             return stats, r.collect(), None
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    done = []
+
+    def traced():
         with StreamingRunner(path, spec, device=device) as r:
-            stats = r.run()
-            recs = r.collect()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            done[:] = [r.run(), r.collect()]
+
+    events, _ = device_events(traced)
+    stats, recs = done
     if not events:
-        raise RuntimeError("the profiler recorded no device event")
+        return stats, recs, ()
     busy = device_busy(events)[0]
     by_kernel = {}
     for e in events:
@@ -158,6 +159,8 @@ def describe(stats) -> str:
 
 
 def describe_profile(prof) -> str:
+    if not prof:
+        return NOT_MEASURED
     wall, busy, idle, by_kernel = prof
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return (f"profiled wall {wall:.4f} s, device busy {busy:.4f} s, idle share {idle:.4f}; "

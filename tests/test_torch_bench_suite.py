@@ -13,6 +13,7 @@ import torch
 from rust_seq2kminmers_torch import bench_suite as bs
 from rust_seq2kminmers_torch import oracle
 from rust_seq2kminmers_torch.constants import with_keep_bits
+from rust_seq2kminmers_torch.io import native_ext
 from rust_seq2kminmers_tpu import bench_suite as jbs
 
 # The reference suite's device cases, in its order (its bench_suite.py:
@@ -31,13 +32,19 @@ DEVICE_CASES = [
 
 
 def test_host_cases_are_the_reference_cases():
-    """The six rows of the reference suite (its in-extension loop rows
-    aside, which it yields only when its AVX-512 extension loads)."""
+    """The nine rows of the reference suite, in its order, its three
+    in-library loop rows included (it yields those where its extension
+    loads, as it does here), each labelled with the host library that
+    served it."""
     rows = list(bs.host_cases(1000))
-    want = [r["case"] for r in jbs.host_cases(1000) if not r["case"].endswith("_native_loop")]
-    assert [r["case"] for r in rows] == want and len(rows) == 6
-    assert all(r["backend"] == "host-numpy" and r["value"] > 0 and r["size"] == 1000
-               for r in rows)
+    want = [r["case"] for r in jbs.host_cases(1000)]
+    assert [r["case"] for r in rows] == want and len(rows) == 9
+    assert all(r["case"].endswith("_native_loop") for r in rows[6:])
+    label = bs.host_backend()
+    assert label.startswith("host-native-c++ (avx512; " if native_ext.avx512()["rle"]
+                            else "host-native-c++ (scalar; ")
+    assert [r["backend"] for r in rows] == [label] * 6 + [f"{label}, in-library loop"] * 3
+    assert all(r["value"] > 0 and r["size"] == 1000 for r in rows)
 
 
 def test_device_cases_on_the_cpu():
@@ -54,8 +61,8 @@ def test_device_cases_on_the_cpu():
 def test_command_line_prints_host_and_device_rows(capsys):
     bs.main(["--device", "cpu", "--size", "65536", "--steps", "2", "--host-size", "1000"])
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [r["case"] for r in rows[6:]] == DEVICE_CASES
-    assert len(rows) == 15 and all(r["value"] > 0 for r in rows)
+    assert [r["case"] for r in rows[9:]] == DEVICE_CASES
+    assert len(rows) == 18 and all(r["value"] > 0 for r in rows)
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):

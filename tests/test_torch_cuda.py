@@ -1150,3 +1150,90 @@ def test_compiled_parallel_steps_world_of_two(two_cuda):
     different calls) and rescue together: no hang, every field equal."""
     out = run_world(_nccl_rank, 2, "nccl", two_cuda, 1 << 15, 4)
     assert [bad for bad, _ in out] == [[], []] and [g for _, g in out] == [[1, 1, 1]] * 2
+
+
+# ---- xcode encoding on the card ----------------------------------------------------
+
+from rust_seq2kminmers_torch import constants  # noqa: E402
+from rust_seq2kminmers_torch.io import native_ext  # noqa: E402
+from rust_seq2kminmers_torch.ops.cuda.xcode import encode_xcodes_cuda  # noqa: E402
+from rust_seq2kminmers_torch.ops.xcode import (  # noqa: E402
+    READ_START,
+    XCODE_ROW,
+    encode_xcodes_plain,
+)
+
+
+def _text_rows(seed, B, C):
+    """uint8[B, C] of every byte value, with runs, lowercase and N."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.concatenate([np.frombuffer(b"ACGTNacgtn", dtype=np.uint8),
+                               np.arange(256, dtype=np.uint8)])
+    pick = rng.choice(alphabet, B * C)
+    return np.repeat(pick, rng.integers(1, 6, B * C))[: B * C].reshape(B, C)
+
+
+@pytest.mark.parametrize("family", ["scalar", "simd"])
+@pytest.mark.parametrize("B,C,ragged", [
+    (32, 1 << 20, False), (32, 1 << 20, True), (1, 1 << 25, False), (7, 4099, True),
+    (3, 16, True),
+])
+def test_xcode_kernel(cuda, family, B, C, ragged):
+    """The kernel equals its plain version bit for bit: full rows; ragged
+    lengths (0, 1, 15, 17 and random, with a row of xcodes passed through
+    and a row continuing from a real byte before it); a [1, 2^25] chunk
+    whose prev is a real byte; C not a multiple of 16 (byte accesses)."""
+    rng = np.random.default_rng(C + B)
+    raw = torch.from_numpy(_text_rows(B, B, C)).to(cuda)
+    lengths = np.full(B, C)
+    prev = np.full(B, READ_START)
+    if ragged:
+        lengths = rng.integers(0, C + 1, B)
+        lengths[: min(B, 4)] = [0, 1, 15, 17][: min(B, 4)]
+        prev[B - 1] = XCODE_ROW
+    if B == 1 or ragged:
+        prev[0] = int(rng.integers(0, 256))
+    prev_t = torch.from_numpy(prev.astype(np.int32)).to(cuda)
+    len_t = torch.from_numpy(np.minimum(lengths, C).astype(np.int32)).to(cuda)
+    before = build.launches["xcode"]
+    got = encode_xcodes_cuda(raw, prev_t, len_t, family)
+    assert build.launches["xcode"] == before + 1
+    want = encode_xcodes_plain(raw, prev_t, len_t, family)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_text_never_encoded_on_the_host_on_card(cuda, monkeypatch):
+    """A long read given as a str, and kminmers_list given a str, are
+    encoded by the kernel: with every host encoder refusing, the records
+    (and the minimizer streams) equal the same reads given as xcodes, and
+    xcode launched once a chunk (kminmers_long) and once (kminmers_list)."""
+    rng = np.random.default_rng(21)
+    seqs = ["".join(rng.choice(list("ACGTTTTTNa"), size=n)) for n in (300000, 70001)]
+    xcodes = [constants.encode_xcodes(s, "simd") for s in seqs]
+    kw = dict(l=31, k=5, density=0.02, mode="hpcsimd", chunk=1 << 16)
+    want = kminmers_long_batch(xcodes, device=cuda, **kw)
+    want_list = kminmers_list(seqs[1], 31, 5, 0.02, "hpcsimd", device=cuda)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a host xcode encoder was called")
+
+    for target, name in ((constants, "encode_xcodes"), (constants, "_encode_xcodes_numpy"),
+                         (native_ext, "xcode")):
+        monkeypatch.setattr(target, name, refuse)
+    build.launches.clear()
+    got = kminmers_long_batch(seqs, device=cuda, **kw)
+    mixed = kminmers_long_batch([seqs[0], xcodes[1]], device=cuda, **kw)
+    assert build.launches["xcode"] == 2 * 5  # 5 chunks of 2^16, each encoded once
+    for g, m, w in zip(got, mixed, want):
+        for key in w:
+            assert np.array_equal(g[key], w[key]) and np.array_equal(m[key], w[key]), key
+    assert len(want[0]["hash"]) > 1000
+    build.launches.clear()
+    assert kminmers_list(seqs[1], 31, 5, 0.02, "hpcsimd", device=cuda) == want_list
+    assert build.launches["xcode"] == 1 and len(want_list) > 100
+    spec = PipelineSpec(l=31, k=5, density=0.02, mode="hpcsimd")
+    got_s = long_read.minimizer_stream_long_batch(seqs, spec, chunk=1 << 16, device=cuda)
+    want_s = long_read.minimizer_stream_long_batch(xcodes, spec, chunk=1 << 16, device=cuda)
+    for g, w in zip(got_s, want_s):
+        assert all(np.array_equal(a, b) for a, b in zip(g, w))

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from rust_seq2kminmers_torch import kminmers_long, kminmers_long_batch
-from rust_seq2kminmers_torch.constants import XCODE_PAD, encode_xcodes
+from rust_seq2kminmers_torch.constants import XCODE_PAD, encode_xcodes, family_of_mode
 from rust_seq2kminmers_torch.ops import long_read as port
 from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
 from rust_seq2kminmers_tpu.oracle import HashMode, minimizers
@@ -369,7 +369,8 @@ def test_device_stream_assembly(case):
     got = kminmers_long_batch(seqs, chunk=2048, device="cpu", **kw)
     spec = PipelineSpec(**{k: v for k, v in kw.items()})
     streams = port.minimizer_stream_long_batch(
-        [port._xcodes(s, spec.mode) for s in seqs], spec, chunk=2048, device="cpu")
+        [encode_xcodes(s, family_of_mode(spec.mode)) for s in seqs], spec, chunk=2048,
+        device="cpu")
     want = jax_long.kminmers_long_batch(seqs, chunk=2048, interpret=True, **kw)
     k = kw["k"]
     for g, (st, en, mh), ref in zip(got, streams, want):
