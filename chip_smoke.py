@@ -1229,6 +1229,7 @@ def main():
     from rust_seq2kminmers_torch.ops.cuda.xcode import encode_xcodes_cuda
     from rust_seq2kminmers_torch.ops.hpc import hpc_compress_packed, hpc_keep_mask
     from rust_seq2kminmers_torch.ops.xcode import READ_START, XCODE_ROW, encode_xcodes_plain
+    from rust_seq2kminmers_torch import tracing
     from rust_seq2kminmers_torch.ops import long_read
     from rust_seq2kminmers_torch.ops.long_read import minimizer_stream_long
     from rust_seq2kminmers_torch.ops.pipeline import (
@@ -2047,10 +2048,11 @@ def main():
     del text_recs
     text_turns = {"xcodes": [], "str": []}
     for way in ("xcodes", "str", "str", "xcodes", "xcodes", "str"):
-        clock = long_read._Clock()
-        t0 = time.perf_counter()
-        long_read._records([seq if way == "xcodes" else text], lspec, 1 << 25, dev, clock)
-        text_turns[way].append((time.perf_counter() - t0, clock.fill_s))
+        with tracing.recording() as spans:
+            t0 = time.perf_counter()
+            long_read._records([seq if way == "xcodes" else text], lspec, 1 << 25, dev)
+            wall = time.perf_counter() - t0
+        text_turns[way].append((wall, tracing.self_seconds(spans).get("long.fill", 0.0)))
     for way, walls in text_turns.items():
         log(f"long read {N_LONG} bases as {way} on {card}: the same records; warm walls "
             + ", ".join(f"{w:.4f}" for w, _ in walls) + " s (in turns; the long-read path's "

@@ -22,6 +22,7 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
+from . import tracing
 from .constants import MODES, XCODE_PAD, byte_view, family_of_mode
 from .oracle import HashMode, KminmerRecord
 from .oracle import kminmers as oracle_kminmers
@@ -121,16 +122,27 @@ def kminmers_batch(codes, lengths, spec: PipelineSpec, max_retries: int = 8):
     stream's); the batch then reruns on ``rescue_spec``.  The overflow
     check's fetch is the host's, outside the graph.
 
-    Returns a KminmerBatch whose n_minimizers == n_minimizers_raw."""
-    for _ in range(max_retries):
-        out = _cached_pipeline(spec)(codes, lengths)
-        n_raw = out.n_minimizers_raw.cpu()
-        if bool((out.n_minimizers.cpu() >= n_raw).all()):
-            return out
-        spec = rescue_spec(spec, int(n_raw.max()))
-    raise RuntimeError(
-        f"minimizer overflow not resolved after {max_retries} retries"
-    )
+    Returns a KminmerBatch whose n_minimizers == n_minimizers_raw.
+
+    Spans (``tracing.py``): ``batch.call`` the call; under it, an attempt
+    a ``batch.step`` (the compiled step), ``batch.wait`` (the first fetch,
+    which waits for the card) and ``batch.check``, and ``batch.rescue``
+    once a rerun."""
+    with tracing.span("batch.call"):
+        for _ in range(max_retries):
+            with tracing.span("batch.step"):
+                out = _cached_pipeline(spec)(codes, lengths)
+            with tracing.span("batch.wait"):
+                n_raw = out.n_minimizers_raw.cpu()
+            with tracing.span("batch.check"):
+                done = bool((out.n_minimizers.cpu() >= n_raw).all())
+            if done:
+                return out
+            with tracing.span("batch.rescue"):
+                spec = rescue_spec(spec, int(n_raw.max()))
+        raise RuntimeError(
+            f"minimizer overflow not resolved after {max_retries} retries"
+        )
 
 
 def run_single(seq, spec: PipelineSpec, device: torch.device):

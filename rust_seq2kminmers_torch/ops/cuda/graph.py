@@ -29,6 +29,10 @@ Each call then
 
 The kernels' launch counters (``build.launches``) count where the kernels
 run: the capture's rise is taken back and kept, and every replay adds it.
+Spans (``tracing.py``): a call's ``step.inputs`` (checks, stream, input
+copies), ``step.replay`` and ``step.handoff``; a compiled step's
+``step.key`` (the key and its lookup) and, for a new key,
+``step.capture`` (warm-up and capture).
 
 A capture that fails raises; nothing falls back to the eager step.  The
 capture keeps the default ``capture_error_mode="global"``: no
@@ -56,6 +60,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ... import tracing
 from . import build
 
 # Captured steps a CompiledStep keeps; past it the least recently used key
@@ -113,22 +118,26 @@ class CapturedStep:
         return warm
 
     def __call__(self, *inputs: torch.Tensor) -> tuple:
-        if len(inputs) != len(self._inputs):
-            raise TypeError(f"expected {len(self._inputs)} inputs, got {len(inputs)}")
-        for i, (static, x) in enumerate(zip(self._inputs, inputs)):
-            if x.shape != static.shape or x.dtype != static.dtype or x.device != static.device:
-                raise ValueError(
-                    f"input {i}: captured for {static.dtype}{list(static.shape)} on "
-                    f"{static.device}, got {x.dtype}{list(x.shape)} on {x.device}")
-        stream = torch.cuda.current_stream(self.device)
-        if stream != self._stream:  # the last call's handoff must be read first
-            stream.wait_stream(self._stream)
-            self._stream = stream
-        for static, x in zip(self._inputs, inputs):
-            static.copy_(x)
-        self.graph.replay()
-        build.launches.update(self.launches)
-        return self._handoff()
+        with tracing.span("step.inputs"):
+            if len(inputs) != len(self._inputs):
+                raise TypeError(f"expected {len(self._inputs)} inputs, got {len(inputs)}")
+            for i, (static, x) in enumerate(zip(self._inputs, inputs)):
+                if (x.shape != static.shape or x.dtype != static.dtype
+                        or x.device != static.device):
+                    raise ValueError(
+                        f"input {i}: captured for {static.dtype}{list(static.shape)} on "
+                        f"{static.device}, got {x.dtype}{list(x.shape)} on {x.device}")
+            stream = torch.cuda.current_stream(self.device)
+            if stream != self._stream:  # the last call's handoff must be read first
+                stream.wait_stream(self._stream)
+                self._stream = stream
+            for static, x in zip(self._inputs, inputs):
+                static.copy_(x)
+        with tracing.span("step.replay"):
+            self.graph.replay()
+            build.launches.update(self.launches)
+        with tracing.span("step.handoff"):
+            return self._handoff()
 
 
 class CompiledStep:
@@ -160,12 +169,14 @@ class CompiledStep:
 
     def _step(self, inputs) -> tuple:
         """-> (the key's step, the warm-up's outputs if it was made now)."""
-        key = (inputs[0].device, *((tuple(x.shape), x.dtype) for x in inputs))
-        step = self.graphs.get(key)
-        if step is not None:
-            self.graphs.move_to_end(key)
-            return step, None
-        step = self.graphs[key] = CapturedStep(self.fn, inputs, inputs[0].device)
+        with tracing.span("step.key"):
+            key = (inputs[0].device, *((tuple(x.shape), x.dtype) for x in inputs))
+            step = self.graphs.get(key)
+            if step is not None:
+                self.graphs.move_to_end(key)
+                return step, None
+        with tracing.span("step.capture"):
+            step = self.graphs[key] = CapturedStep(self.fn, inputs, inputs[0].device)
         while len(self.graphs) > MAX_GRAPHS:
             self.graphs.popitem(last=False)
         return step, step.take_warmup()

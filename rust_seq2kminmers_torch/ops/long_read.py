@@ -47,12 +47,12 @@ import collections
 import functools
 import queue
 import threading
-import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..api import _device, rescue_spec
 from ..constants import XCODE_PAD, byte_view, family_of_mode
 from ..io import queues
@@ -117,23 +117,6 @@ def _compiled_chunk_step(spec: PipelineSpec, chunk: int) -> CompiledStep:
     return CompiledStep(_chunk_step(spec, chunk))
 
 
-class _Clock:
-    """Host-clock seconds of a call's parts, by name (read by
-    ``scripts/prof_long_read.py``): ``lap(name)`` adds the time since the
-    last lap.  ``fill_s`` is the producer's filling time, which overlaps
-    the parts."""
-
-    def __init__(self):
-        self.parts: collections.Counter = collections.Counter()
-        self.fill_s = 0.0
-        self._t = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        t = time.perf_counter()
-        self.parts[name] += t - self._t
-        self._t = t
-
-
 class _Staging:
     """The chunks of every read, padded with XCODE_PAD, staged by a
     producer thread ahead of the thread that dispatches them (``run``).
@@ -152,13 +135,17 @@ class _Staging:
     buffers to the slot's device buffers on a side stream, after the
     compute stream's last use of them, makes the compute stream wait for
     the copy, and hands the slot back to the producer only after the copy
-    has completed.  On the CPU the producer fills new arrays a chunk."""
+    has completed.  On the CPU the producer fills new arrays a chunk.
 
-    def __init__(self, rows, chunk: int, device: torch.device, clock: _Clock | None = None,
-                 raw=None, family: str = "scalar"):
+    Spans (``tracing.py``), a chunk each: the producer's ``long.fill`` (a
+    root of its thread in the caller's call), and on this thread
+    ``long.hand_back``, ``long.wait_staged``, ``long.h2d_issue``,
+    ``long.encode_issue`` and ``long.dispatch``."""
+
+    def __init__(self, rows, chunk: int, device: torch.device, raw=None,
+                 family: str = "scalar"):
         self.rows, self.chunk, self.device = rows, chunk, device
         self.lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
-        self.clock = clock or _Clock()
         self.cuda = device.type == "cuda"
         B = len(rows)
         self.raw_rows = np.flatnonzero(np.zeros(B, bool) if raw is None else raw)
@@ -203,10 +190,11 @@ class _Staging:
             buf[b, n:] = XCODE_PAD
         return buf
 
-    def _produce(self, ids, free, ready, stop) -> None:
+    def _produce(self, ids, free, ready, stop, call: int) -> None:
         """Fill chunk after chunk of ``ids`` into a free slot (GPU) or new
         arrays (CPU) and put (slot, buffer, bytes before) into ``ready``; an
-        exception is put there instead, for the caller's thread to raise."""
+        exception is put there instead, for the caller's thread to raise.
+        ``call``: the caller's call id, under which the fills are spans."""
         try:
             for ci in ids:
                 if free is None:
@@ -218,10 +206,9 @@ class _Staging:
                     if slot is None:
                         return  # stopped
                     buf, before = self.host_np[slot], self.prev_np[slot]
-                t0 = time.perf_counter()
-                self._fill(ci, buf)
-                self._before(ci, before)
-                self.clock.fill_s += time.perf_counter() - t0
+                with tracing.span("long.fill", call=call):
+                    self._fill(ci, buf)
+                    self._before(ci, before)
                 if not queues.put(ready, (slot, buf, before), stop):
                     return
         except Exception as e:  # handed to the caller's thread, which raises it
@@ -244,52 +231,53 @@ class _Staging:
         ready: queue.Queue = queue.Queue(maxsize=_STAGES)
         stop = threading.Event()
         producer = threading.Thread(
-            target=self._produce, args=(ids, free, ready, stop), daemon=True
+            target=self._produce, args=(ids, free, ready, stop, tracing.current_call()),
+            daemon=True,
         )
         pending: collections.deque = collections.deque()  # (copy event, slot)
-        clock = self.clock
         producer.start()
         try:
             for ci in ids:
                 # Hand back the slots whose copies have completed; with every
                 # slot here, wait for the oldest copy, or the producer starves.
-                while pending and (len(pending) == _STAGES or pending[0][0].query()):
-                    copied, s = pending.popleft()
-                    copied.synchronize()
-                    free.put(s)
-                clock.lap("A: hand back")
-                item = self._next(ready, producer)
-                clock.lap("A: wait for a staged chunk")
+                with tracing.span("long.hand_back"):
+                    while pending and (len(pending) == _STAGES or pending[0][0].query()):
+                        copied, s = pending.popleft()
+                        copied.synchronize()
+                        free.put(s)
+                with tracing.span("long.wait_staged"):
+                    item = self._next(ready, producer)
                 if isinstance(item, Exception):
                     raise item
                 slot, buf, before = item
                 if not self.cuda:
-                    dispatch(ci, self._encode(ci, torch.from_numpy(buf), torch.from_numpy(before)))
-                    clock.lap("A: dispatch")
+                    with tracing.span("long.dispatch"):
+                        dispatch(ci, self._encode(ci, torch.from_numpy(buf),
+                                                  torch.from_numpy(before)))
                     continue
-                with torch.cuda.stream(self.stream):
-                    if self.used[slot] is not None:
-                        self.stream.wait_event(self.used[slot])
-                    self.dev[slot].copy_(self.host[slot], non_blocking=True)
-                    if self.raw_rows.size:
-                        self.prev_dev[slot].copy_(self.prev[slot], non_blocking=True)
-                    copied = torch.cuda.Event()
-                    copied.record(self.stream)
-                compute.wait_event(copied)
-                pending.append((copied, slot))
-                clock.lap("A: H2D issue")
-                codes = self._encode(ci, self.dev[slot], self.prev_dev[slot])
-                clock.lap("A: encode issue")
-                dispatch(ci, codes)
-                self.used[slot] = torch.cuda.Event()
-                self.used[slot].record(compute)
-                clock.lap("A: dispatch")
-            for copied, _ in pending:  # every slot free for the next run
-                copied.synchronize()
+                with tracing.span("long.h2d_issue"):
+                    with torch.cuda.stream(self.stream):
+                        if self.used[slot] is not None:
+                            self.stream.wait_event(self.used[slot])
+                        self.dev[slot].copy_(self.host[slot], non_blocking=True)
+                        if self.raw_rows.size:
+                            self.prev_dev[slot].copy_(self.prev[slot], non_blocking=True)
+                        copied = torch.cuda.Event()
+                        copied.record(self.stream)
+                    compute.wait_event(copied)
+                    pending.append((copied, slot))
+                with tracing.span("long.encode_issue"):
+                    codes = self._encode(ci, self.dev[slot], self.prev_dev[slot])
+                with tracing.span("long.dispatch"):
+                    dispatch(ci, codes)
+                    self.used[slot] = torch.cuda.Event()
+                    self.used[slot].record(compute)
+            with tracing.span("long.hand_back"):
+                for copied, _ in pending:  # every slot free for the next run
+                    copied.synchronize()
         finally:
             stop.set()
             producer.join()
-        clock.lap("A: hand back")
 
     def _encode(self, ci: int, staged: torch.Tensor, before: torch.Tensor) -> torch.Tensor:
         """The staged chunk ci as xcodes: a batch with raw rows is encoded
@@ -336,34 +324,35 @@ def _rows(seqs):
     return rows, raw
 
 
-def _streams(seqs, spec: PipelineSpec, chunk: int, device: torch.device, clock: _Clock):
+def _streams(seqs, spec: PipelineSpec, chunk: int, device: torch.device):
     """Phases A-D over the reads ``seqs`` (each text or xcodes, ``_rows``) -> None
     when no read is longer than l, else (flat, nm, chunk): flat int32[ncols,
     total] on ``device``, every read's valid minimizers, read after read
     and chunk after chunk, as rows start, end (positions in their chunk),
     hash lo[, hash hi]; nm int[nchunks, B] the counts; chunk rounded up to
-    a multiple of 1024."""
-    rows, raw = _rows(seqs)
-    lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
-    B = len(rows)
-    n_max = int(lengths.max(initial=0))
-    if n_max > MAX_READ:
-        raise ValueError(f"a read of {n_max} bases exceeds {MAX_READ}")
-    if not spec.fused:
-        raise ValueError(f"long reads need 2 <= l <= 255 (K1's carry), got l={spec.l}")
-    l = spec.l
-    if n_max <= l:
-        return None
-    chunk = -(-max(int(chunk), 1024) // 1024) * 1024
-    nchunks = -(-n_max // chunk)
-    limit_h = np.where(lengths > l, HPC_LIMIT if spec.is_hpc else lengths - l, -1)
-    limit = torch.from_numpy(limit_h.astype(np.int32)).to(device)
-    staging = _Staging(rows, chunk, device, clock, raw, family_of_mode(spec.mode))
-    local_d = staging.local  # [nchunks, B]
-    step_for = _compiled_chunk_step if device.type == "cuda" else _chunk_step
-    step = step_for(spec, chunk)
-    _capture(step, B, chunk, l, limit)
-    clock.lap("set-up")
+    a multiple of 1024.  Spans: ``long.setup``, phase A's (``_Staging``),
+    ``long.counts``, ``long.rescue`` and ``long.gather``."""
+    with tracing.span("long.setup"):
+        rows, raw = _rows(seqs)
+        lengths = np.array([int(r.shape[0]) for r in rows], dtype=np.int64)
+        B = len(rows)
+        n_max = int(lengths.max(initial=0))
+        if n_max > MAX_READ:
+            raise ValueError(f"a read of {n_max} bases exceeds {MAX_READ}")
+        if not spec.fused:
+            raise ValueError(f"long reads need 2 <= l <= 255 (K1's carry), got l={spec.l}")
+        l = spec.l
+        if n_max <= l:
+            return None
+        chunk = -(-max(int(chunk), 1024) // 1024) * 1024
+        nchunks = -(-n_max // chunk)
+        limit_h = np.where(lengths > l, HPC_LIMIT if spec.is_hpc else lengths - l, -1)
+        limit = torch.from_numpy(limit_h.astype(np.int32)).to(device)
+        staging = _Staging(rows, chunk, device, raw, family_of_mode(spec.mode))
+        local_d = staging.local  # [nchunks, B]
+        step_for = _compiled_chunk_step if device.type == "cuda" else _chunk_step
+        step = step_for(spec, chunk)
+        _capture(step, B, chunk, l, limit)
 
     # Phase A: every chunk dispatched; the carry chains on the device.  The
     # carry comes from the kept stream, which no capacity clips, so a chunk
@@ -385,42 +374,43 @@ def _streams(seqs, spec: PipelineSpec, chunk: int, device: torch.device, clock: 
             len(ids), 2, B).cpu().numpy()
 
     # Phase B: one fetch of the counts.
-    counts = fetch_counts(range(nchunks))
-    nm, nr = counts[:, 0].copy(), counts[:, 1]
-    clock.lap("B: wait + count fetch")
+    with tracing.span("long.counts"):
+        counts = fetch_counts(range(nchunks))
+        nm, nr = counts[:, 0].copy(), counts[:, 1]
 
     # Phase C: rerun the chunks that lost survivors, on the lossless tile
     # capacity with M raised to the largest raw count.
     bad = np.flatnonzero((nm < nr).any(axis=1))
     if bad.size:
-        rstep = step_for(rescue_spec(spec, int(nr.max())), chunk)
-        _capture(rstep, B, chunk, l, limit)
+        with tracing.span("long.rescue"):
+            rstep = step_for(rescue_spec(spec, int(nr.max())), chunk)
+            _capture(rstep, B, chunk, l, limit)
 
-        def redo(ci, codes):
-            *cols, n_min, n_raw, _, _ = rstep(codes, local_d[ci], limit, *per_chunk[ci][3])
-            per_chunk[ci] = (cols, n_min, n_raw, per_chunk[ci][3])
+            def redo(ci, codes):
+                *cols, n_min, n_raw, _, _ = rstep(codes, local_d[ci], limit,
+                                                  *per_chunk[ci][3])
+                per_chunk[ci] = (cols, n_min, n_raw, per_chunk[ci][3])
 
-        staging.run(bad, redo)
-        rch = fetch_counts(bad)
-        for i, ci in enumerate(bad):
-            if (rch[i, 0] < rch[i, 1]).any():
-                raise RuntimeError(
-                    f"chunk {ci} overflow not resolved ({rch[i, 0]} < {rch[i, 1]})"
-                )
-            nm[ci] = rch[i, 0]
-        clock.lap("C: rescue")
+            staging.run(bad, redo)
+            rch = fetch_counts(bad)
+            for i, ci in enumerate(bad):
+                if (rch[i, 0] < rch[i, 1]).any():
+                    raise RuntimeError(
+                        f"chunk {ci} overflow not resolved ({rch[i, 0]} < {rch[i, 1]})"
+                    )
+                nm[ci] = rch[i, 0]
 
     # Phase D: the valid prefixes only, gathered on the device.
-    ncols = 4 if spec.hash_width == 64 else 3
-    pieces = [
-        per_chunk[ci][0][col][b, : int(nm[ci, b])]
-        for col in range(ncols) for b in range(B) for ci in range(nchunks)
-        if nm[ci, b]
-    ]
-    total = int(nm.sum())
-    flat = (torch.cat(pieces) if pieces
-            else torch.zeros(0, dtype=torch.int32, device=device)).view(ncols, total)
-    clock.lap("D: gather")
+    with tracing.span("long.gather"):
+        ncols = 4 if spec.hash_width == 64 else 3
+        pieces = [
+            per_chunk[ci][0][col][b, : int(nm[ci, b])]
+            for col in range(ncols) for b in range(B) for ci in range(nchunks)
+            if nm[ci, b]
+        ]
+        total = int(nm.sum())
+        flat = (torch.cat(pieces) if pieces
+                else torch.zeros(0, dtype=torch.int32, device=device)).view(ncols, total)
     return flat, nm, chunk
 
 
@@ -486,7 +476,7 @@ def minimizer_stream_long_batch(
     two a byte on the host cost more time than the halved copy saved."""
     device = _device(device)
     hdt = {16: np.uint16, 32: np.uint32, 64: np.uint64}[spec.hash_width]
-    found = _streams(rows, spec, chunk, device, _Clock())
+    found = _streams(rows, spec, chunk, device)
     if found is None:
         empty = (np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, hdt))
         return [empty] * len(rows)
@@ -550,43 +540,43 @@ def _no_records() -> dict:
     }
 
 
-def _records(seqs, spec: PipelineSpec, chunk: int, device: torch.device,
-             clock: _Clock | None = None) -> list:
+def _records(seqs, spec: PipelineSpec, chunk: int, device: torch.device) -> list:
     """One records dict per read of ``seqs``: phases A-D, then K3 on the
     device-resident flat stream in one launch (the windows that straddle
     two reads are computed and dropped: a window's hash depends only on
     its own elements), then one pinned fetch of each window's start, end,
-    hash (hi, lo) and rev."""
-    clock = clock or _Clock()
-    found = _streams(seqs, spec, chunk, device, clock)
-    k = spec.k
-    if found is None or found[0].shape[1] < k:
-        return [_no_records() for _ in seqs]
-    flat, nm, chunk = found
-    nwin = flat.shape[1] - k + 1
-    hi = flat[3:4] if spec.hash_width == 64 else None
-    (khi, klo), rev = assemble_kminmers_cuda(flat[2:3], k, spec.hash_width, hi)
-    # Window w: the hash and rev of minimizers w..w+k-1, the start of
-    # minimizer w and the end of minimizer w + k - 1, in the read.
-    origin = _origins(nm, chunk, device)
-    cols = [_words64(klo[0], khi[0]), flat[0, :nwin] + origin[:nwin],
-            flat[1, k - 1 :] + origin[k - 1 :], rev[0]]
-    clock.lap("asm: K3 + columns")
-    h, start, end, rev = _fetch(cols)
-    clock.lap("fetch: pinned copy + wait")
-    out = []
-    for a, z in _reads(nm):
-        nk = max(z - a - (k - 1), 0)
-        w = slice(a, a + nk)
-        out.append({
-            "hash": h[w].view(np.uint64).copy(),
-            "start": start[w].copy(),
-            "end": end[w].copy(),
-            "offset": np.arange(nk, dtype=np.int64),
-            "rev": rev[w].copy(),
-        })
-    clock.lap("records: dicts")
-    return out
+    hash (hi, lo) and rev.  Spans: ``long.call`` the call; under it
+    ``_streams``'s, ``long.assemble``, ``long.fetch`` and ``long.records``."""
+    with tracing.span("long.call"):
+        found = _streams(seqs, spec, chunk, device)
+        k = spec.k
+        if found is None or found[0].shape[1] < k:
+            return [_no_records() for _ in seqs]
+        flat, nm, chunk = found
+        with tracing.span("long.assemble"):
+            nwin = flat.shape[1] - k + 1
+            hi = flat[3:4] if spec.hash_width == 64 else None
+            (khi, klo), rev = assemble_kminmers_cuda(flat[2:3], k, spec.hash_width, hi)
+            # Window w: the hash and rev of minimizers w..w+k-1, the start of
+            # minimizer w and the end of minimizer w + k - 1, in the read.
+            origin = _origins(nm, chunk, device)
+            cols = [_words64(klo[0], khi[0]), flat[0, :nwin] + origin[:nwin],
+                    flat[1, k - 1 :] + origin[k - 1 :], rev[0]]
+        with tracing.span("long.fetch"):
+            h, start, end, rev = _fetch(cols)
+        with tracing.span("long.records"):
+            out = []
+            for a, z in _reads(nm):
+                nk = max(z - a - (k - 1), 0)
+                w = slice(a, a + nk)
+                out.append({
+                    "hash": h[w].view(np.uint64).copy(),
+                    "start": start[w].copy(),
+                    "end": end[w].copy(),
+                    "offset": np.arange(nk, dtype=np.int64),
+                    "rev": rev[w].copy(),
+                })
+        return out
 
 
 def kminmers_long(

@@ -20,9 +20,12 @@ checkout's package given those strs).
   3. three host-clock walls of each way's whole call, in turns, staging,
      transfers and assembly included; every call's records equal;
   4. each way of this tree split part by part on the host clock (three
-     times), with a sync only where the path itself syncs: the path's
-     own ``_Clock`` laps and the producer's fill seconds; phase A's host
-     issue is its H2D issue, encode issue and dispatch;
+     times), with a sync only where the path itself syncs: the self
+     seconds of the path's spans (``tracing.recording()``; ``long.call``'s
+     own is what no other span covers) and the producer's fill seconds
+     (``long.fill``, which overlaps them); phase A's host issue is its
+     ``long.h2d_issue``, ``long.encode_issue`` and ``long.dispatch`` with
+     the compiled step's spans under it (``PHASE_A_ISSUE``);
   5. the host's staging alone, as the path does it: ``_Staging._fill``
      into one pinned buffer that was already touched, over every chunk;
   6. one call of each way under ``torch.profiler``: the device's busy
@@ -48,12 +51,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops.long_read import _Clock
+from .. import tracing
 from .prof_mxu_compact import card
 
 N = 300_000_000
 CHUNK = 1 << 25
 ARGS = dict(l=31, k=5, density=0.01, mode="hpcsimd")
+PHASE_A_ISSUE = ("long.h2d_issue", "long.encode_issue", "long.dispatch", "step.inputs",
+                 "step.replay", "step.handoff")
 
 
 def random_read(n: int, seed: int = 9) -> np.ndarray:
@@ -200,9 +205,9 @@ def main() -> int:
     texts = [as_text(r) for r in rows] if args.text else None
 
     def new_split(reads=rows):
-        clock = _Clock()
-        got = lr._records(reads, lr.PipelineSpec(**ARGS), CHUNK, dev, clock)
-        return got, {**clock.parts, "fill (producer, overlapped)": clock.fill_s}
+        with tracing.recording() as spans:
+            got = lr._records(reads, lr.PipelineSpec(**ARGS), CHUNK, dev)
+        return got, tracing.self_seconds(spans)
 
     def eager(fn):
         def run():
@@ -251,12 +256,12 @@ def main() -> int:
             got, parts = splits[label]()
             if not same_records(got, want):
                 raise RuntimeError(f"{label}: the split call's records differ")
-            host_a = sum(v for k, v in parts.items()
-                         if k in ("A: H2D issue", "A: encode issue", "A: dispatch"))
+            host_a = sum(v for k, v in parts.items() if k in PHASE_A_ISSUE)
             print(f"{label} split (host clock, s): total "
-                  f"{sum(v for k, v in parts.items() if not k.startswith('fill')):.4f}; "
+                  f"{sum(v for k, v in parts.items() if k != 'long.fill'):.4f}; "
                   f"phase A host issue {host_a:.4f}; "
-                  + "; ".join(f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
+                  + "; ".join(f"{k} {v:.4f}" for k, v in parts.items())
+                  + " (long.fill: the producer's, overlapped)", flush=True)
 
     staging = lr._Staging(rows, CHUNK, torch.device("cpu"))
     buf = torch.empty((len(rows), CHUNK), dtype=torch.uint8, pin_memory=True).numpy()
