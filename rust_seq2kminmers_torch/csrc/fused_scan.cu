@@ -33,25 +33,64 @@
 //      nt's prefix IS the carry-out;
 //   3. scan_kernel, grid (nt, B), one block per (tile, read): the block
 //      seeds its stream from its pending prefix and walks its own tile in
-//      steps of NT = 640 bases, its codes staged in shared memory by 16-byte
-//      loads.
+//      steps of threads x run bases (ScanShape<H>), each thread a run of
+//      16 consecutive bases read straight from device memory by one
+//      16-byte load, coalesced across the warp.
 //
 // The window hash: the pre-rotated terms af[e] = rol(seed[c], -r) and
 // ar[e] = rol(seed'[c], r) combine only by XOR, so the block keeps running
 // prefixes PF(r) = af[..] ^ ... ^ af[r] and PR(r) instead of the terms, and
-// the window at rank f is PF(f + l - 1) ^ PF(f - 1): two shared-memory loads,
-// not 2 * l.  A step ranks its kept elements (ballots, one warp reduction
-// for the warps before), XOR-scans their terms over the warp with shuffles
-// and adds the XOR of the warps before with one warp reduction.  Prefixes
-// and positions live in a ring of RING slots indexed by rank, so nothing is
-// copied from step to step and PF(base - 1) is read back from it; a step has
-// four barriers (ballots, warp XORs, stream written, survivor ballots).
+// the window at rank f is PF(f + l - 1) ^ PF(f - 1): two loads, not 2 * l.
+// Prefixes and positions live in a ring in shared memory indexed by rank
+// (a power of two that holds a step and the l + 1 ranks before it, one
+// slot of padding every 16 so that threads whose ranks lie 16 apart use
+// different banks), so nothing is copied from step to step.
+//
+// A step of pass 3:
+//   a. each thread builds its run's keep mask in a register (the tile's
+//      ends, the read's length and the load's misalignment as one range
+//      mask) and walks its 16 positions once for the run's kept count n and
+//      its XORs of terms rotated by their rank inside the run,
+//        xf = XOR_i rol(seed[c_i], -i),  xr = XOR_i rol(seed'[c_i], i),
+//      keeping each prefix of them in registers;
+//   b. one block scan of (n, xf, xr) under
+//        (n1, f1, r1) o (n2, f2, r2) = (n1 + n2, f1 ^ rol(f2, -n1), r1 ^ rol(r2, n1)),
+//      associative because rotations compose mod the width (16, 31, 32,
+//      64): five shuffle levels in the warp, then the warps' totals
+//      through shared memory (barrier 1).  A thread's exclusive value
+//      gives its first rank and, rotated by -base and XORed with
+//      PF(base - 1), its PF and PR before its run; the block's total moves
+//      base and PF(base - 1) on, in registers;
+//   c. each thread turns its register prefixes into PF and PR (one
+//      rotation by -first each) and writes the kept ones and their
+//      positions into the ring (barrier 2);
+//   d. each thread evaluates the window each kept base emits: its own PF
+//      and PR from registers, PF(f - 1) and PR(f - 1) from the ring; a
+//      survivor count, one more block exclusive scan (barrier 3), and the
+//      thread writes its survivors in stream order, each hash computed
+//      again from the ring.
+// Steps a, c and d walk every position without a branch, a position not
+// kept adding nothing, so that each step's shared-memory loads issue
+// together, not one latency at a time behind a branch a base.
+// Three barriers a step of 96 x 16 bases; the design before it had four for
+// every 640 bases, one base a thread, and two more for a stage of the
+// codes in shared memory.
+//
+// Shape (ScanShape<H>), from measurement on the H100: 96 threads (64 and
+// 128 ran slower at every width), a ring of 2048 ranks in 2176 slots,
+// 26,112 bytes at widths 16, 31 and 32 (8 blocks a SM, 80 registers a
+// thread; at 32 one 4-byte spill, a store and a load a step) and 43,520
+// at 64 (4 blocks a SM, 168 registers).
 //
 // Bound on this card: it reads 1 byte per base twice (passes 1 and 3) and
 // writes ~12 bytes per survivor (~1% of bases), so bytes allow ~0.01 ms at
-// the [32, 1 Mbp] main-path shape; what binds is pass 3's instructions per
-// base (keep test, ballots, shuffle scans, rotations, the window) and its
-// four barriers a step.
+// the [32, 1 Mbp] main-path shape.  What binds pass 3 is its instructions
+// per base: by cuobjdump -sass at width 32, ~60 a base in the loop (a
+// step of 16 bases ~966: the keep mask, seed loads, rotations and XORs of
+// a and c, the ring's addresses and stores, d's loads and hashes, the
+// scans), against ~247 a base before (the 640-thread loop's body for each
+// base); and the ring's banks, where the hpc modes' ragged runs put
+// threads' ranks at random distances.
 //
 // Output contract: the survivors whose window's emitting element lies in
 // tile t (its last element, or its one-past-last element in hpc mode) are
@@ -69,23 +108,16 @@
 // in the same packing; the caller rebases their positions.  All three are
 // null for a fresh read with no carry-out.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-// Pass 3: threads per block = bases per step, and blocks per SM: 640 x 2
-// leaves 48 registers a thread, enough for every width with no spill
-// (1024 x 2 spilled at 32; 1024 x 1 and 512 x 2 ran slower).
-constexpr int NT = 640;
-constexpr int MIN_BLOCKS = 2;
+constexpr int NT = 640;  // pass 2: threads per block
 constexpr int LMAX = 255;   // largest l: the pending prefix is l elements
-// Ring slots: a power of two that holds a step and the l + 1 ranks before it.
-constexpr int ring_slots(int n) { return n >= NT + LMAX + 1 ? n : ring_slots(2 * n); }
-constexpr int RING = ring_slots(1);
-constexpr int SEG = 16 * NT;  // bases staged in shared memory at a time
 constexpr int RANKS_SMEM = 12000;  // pass 2 searches ranks in shared memory
                                    // up to this many tiles
-constexpr int NW = NT / 32;  // warps per block
 constexpr int NT1 = 256, CH = 4;  // pass 1: threads, 16-byte chunks a thread
 constexpr int TPB = 64;  // pass 2: tiles' pending prefixes a block
 
@@ -96,8 +128,6 @@ using s2k::H32;
 using s2k::H64;
 using s2k::byte_of;
 using s2k::misalign;
-using s2k::warp_xor_scan;
-using s2k::xor_below;
 
 // Whether xcode x at position j < t1 is a stream element: every position
 // in the regular modes, the HPC keep bit before the read's end in the hpc
@@ -219,20 +249,121 @@ __global__ void __launch_bounds__(NT) tile_carries_kernel(
 
 // ---- pass 3: one block per (tile, read) -----------------------------------
 
-// The canonical hash of the window at rank f >= 0 from the ring's prefixes.
+constexpr int pow2_at_least(int n, int p = 1) {
+  return p >= n ? p : pow2_at_least(n, 2 * p);
+}
+
+// Pass 3's shape at hash H: `threads` a block, each taking a run of `run`
+// consecutive bases a step (one 16-byte load); a ring of `ring` ranks, a
+// power of two that holds a step and the l + 1 ranks before it, in `slots`
+// slots, one of padding every 16.  Chosen by measurement (the note at the
+// head of the file).
 template <typename H>
-__device__ __forceinline__ typename H::T window_hash(const typename H::T* pf,
-                                                     const typename H::T* pr,
-                                                     int f, int l) {
+struct ScanShape {
+  static constexpr int run = 16;
+  static constexpr int threads = 96;
+  static constexpr int min_blocks = sizeof(typename H::T) == 8 ? 4 : 8;
+  static constexpr int ring = pow2_at_least(threads * run + LMAX + 1);
+  static constexpr int slots = ring + ring / 16;
+};
+
+// Rank r's slot in a ring of RING ranks (r may be negative).
+template <int RING>
+__device__ __forceinline__ int ring_slot(int r) {
+  const int s = r & (RING - 1);
+  return s + (s >> 4);
+}
+
+// PF(r) and PR(r) side by side: one load or store of 8 (16) bytes.
+template <typename H>
+struct alignas(2 * sizeof(typename H::T)) Pair {
+  typename H::T f, r;
+};
+
+// A stretch of the stream for the block scan: its kept count and the XORs
+// of its terms, each rotated by its rank inside the stretch.
+template <typename H>
+struct Seg {
+  int n;
+  typename H::T f, r;
+};
+
+// a, then b: b's ranks move up by a.n.
+template <typename H>
+__device__ __forceinline__ Seg<H> then(const Seg<H>& a, const Seg<H>& b) {
+  return {a.n + b.n, a.f ^ H::rol(b.f, H::neg((uint32_t)a.n)),
+          a.r ^ H::rol(b.r, (uint32_t)a.n)};
+}
+
+// Bit i set where byte i of w has bit 3 (the HPC keep flag) set.
+__device__ __forceinline__ uint32_t keep_bits(uint32_t w) {
+  return (((w >> 3) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// Rotate by r <= W (by any r at width 32, whose funnel shift wraps).
+template <typename H>
+__device__ __forceinline__ typename H::T rol_small(typename H::T x, uint32_t r) {
+  if constexpr (std::is_same<H, H32>::value) {
+    return __funnelshift_l(x, x, r);
+  } else {
+    return H::rolr(x, r);
+  }
+}
+
+// Rotate by any r.
+template <typename H>
+__device__ __forceinline__ typename H::T rol_any(typename H::T x, uint32_t r) {
+  if constexpr (std::is_same<H, H32>::value) {
+    return __funnelshift_l(x, x, r);
+  } else {
+    return H::rol(x, r);
+  }
+}
+
+// The canonical hash of the window at rank f >= 0 from PF(f + l - 1) ^
+// PF(f - 1) and PR(f + l - 1) ^ PR(f - 1).
+template <typename H>
+__device__ __forceinline__ typename H::T window_hash(typename H::T xf,
+                                                     typename H::T xr, int f,
+                                                     int l) {
   using T = typename H::T;
-  const int last = (f + l - 1) & (RING - 1), prev = (f - 1) & (RING - 1);
-  const T fh = H::rol(pf[last] ^ pf[prev], (uint32_t)(l - 1 + f));
-  const T rh = H::rol(pr[last] ^ pr[prev], H::neg((uint32_t)f));
+  const T fh = rol_any<H>(xf, (uint32_t)(l - 1 + f));
+  const T rh = rol_any<H>(xr, H::neg((uint32_t)f));
   return fh < rh ? fh : rh;
 }
 
+// Step d for a run: bit i set where kept position i emits a window (rank
+// f = e - l + 1, or e - l with HE, hpc_end, whose window ends at e - 1)
+// that is valid (f <= ulim as unsigned: 0 <= f <= limit) and whose hash
+// is at most hb.  PF(f + l - 1) from the registers (pf[i], or with HE the
+// value before it: pf[i - 1], or PF(first - 1)), PF(f - 1) from the ring.
+template <typename H, bool HE, int V, int RING, typename P>
+__device__ __forceinline__ uint32_t windows(const typename H::T (&pf)[V],
+                                            const typename H::T (&pr)[V],
+                                            typename H::T bf, typename H::T br,
+                                            const P* s_p, uint32_t mask,
+                                            int first, int l, uint32_t ulim,
+                                            typename H::T hb) {
+  using T = typename H::T;
+  uint32_t sel = 0;
+  int e = first;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int f = e - l + 1 - HE;
+    const P p = s_p[ring_slot<RING>(f - 1)];
+    const T lf = HE ? (i ? pf[i > 0 ? i - 1 : 0] : bf) : pf[i];
+    const T lr = HE ? (i ? pr[i > 0 ? i - 1 : 0] : br) : pr[i];
+    const T h = window_hash<H>(lf ^ p.f, lr ^ p.r, f, l);
+    const uint32_t k = mask >> i & 1u;
+    sel |= (k & (uint32_t)((uint32_t)f <= ulim) & (uint32_t)(h <= hb)) << i;
+    e += k;
+  }
+  return sel;
+}
+
 template <typename H>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) scan_kernel(
+__global__ void __launch_bounds__(ScanShape<H>::threads, ScanShape<H>::min_blocks)
+scan_kernel(
     const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
     const int32_t* __restrict__ limits,
     const typename H::T* __restrict__ seeds,
@@ -242,21 +373,21 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) scan_kernel(
     int32_t* __restrict__ counts, int L, int l, typename H::T bound,
     int strict, int do_hpc, int hpc_end, int tile, int cap, int nt) {
   using T = typename H::T;
-  constexpr int M = RING - 1;
-  // The ring, by rank r at slot r & M: PF(r), PR(r) and r's position; then
-  // the staged codes.
+  using S = ScanShape<H>;
+  using P = Pair<H>;
+  constexpr int V = S::run, TH = S::threads, NW = TH / 32;
+  static_assert(V == 16, "a run is one 16-byte load");
+  // The ring, by rank r at ring_slot(r): PF(r) and PR(r), then r's position.
   extern __shared__ __align__(16) unsigned char smem[];
-  T* s_pf = reinterpret_cast<T*>(smem);
-  T* s_pr = s_pf + RING;
-  int32_t* s_pos = reinterpret_cast<int32_t*>(s_pr + RING);
-  uint8_t* s_code = reinterpret_cast<uint8_t*>(s_pos + RING);
-  __shared__ T s_seed[16];  // forward seeds [0, 8), reverse [8, 16)
-  __shared__ T s_wf[NW], s_wr[NW];  // each warp's XOR of its terms
-  __shared__ unsigned s_ballot[NW], s_bsel[NW];  // kept, selected
+  P* s_p = reinterpret_cast<P*>(smem);
+  int32_t* s_pos = reinterpret_cast<int32_t*>(s_p + S::slots);
+  __shared__ P s_seed[8];  // code c: (forward seed, reverse seed)
+  __shared__ Seg<H> s_warp[NW];  // each warp's (n, xf, xr)
+  __shared__ int s_sel[NW];  // each warp's survivors
 
   const int t = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  if (tid < 16) s_seed[tid] = seeds[tid];
+  if (tid < 8) s_seed[tid] = P{seeds[tid], seeds[8 + tid]};
   __syncthreads();
   const size_t bt = (size_t)b * (nt + 1) + t;
   int base = base_in[bt];  // the rank of the next stream element
@@ -271,103 +402,152 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) scan_kernel(
       const int32_t p = pend[k];
       const int r = base - l + k;
       if (r >= 0) {
-        xf ^= H::rol(s_seed[p & 7], H::neg((uint32_t)r));
-        xr ^= H::rol(s_seed[8 + (p & 7)], (uint32_t)r);
+        xf ^= H::rol(s_seed[p & 7].f, H::neg((uint32_t)r));
+        xr ^= H::rol(s_seed[p & 7].r, (uint32_t)r);
       }
     }
-    T pf = warp_xor_scan(xf, lane) ^ xf, pr = warp_xor_scan(xr, lane) ^ xr;
+    T pf = s2k::warp_xor_scan(xf, lane) ^ xf;
+    T pr = s2k::warp_xor_scan(xr, lane) ^ xr;
     for (int k = k0; k < k1; ++k) {
       const int32_t p = pend[k];
       const int r = base - l + k;
       if (r >= 0) {
-        pf ^= H::rol(s_seed[p & 7], H::neg((uint32_t)r));
-        pr ^= H::rol(s_seed[8 + (p & 7)], (uint32_t)r);
+        pf ^= H::rol(s_seed[p & 7].f, H::neg((uint32_t)r));
+        pr ^= H::rol(s_seed[p & 7].r, (uint32_t)r);
       }
-      s_pf[r & M] = pf;
-      s_pr[r & M] = pr;
-      s_pos[r & M] = p >> 3;  // arithmetic: carried positions are negative
+      s_p[ring_slot<S::ring>(r)] = P{pf, pr};
+      s_pos[ring_slot<S::ring>(r)] = p >> 3;  // arithmetic: carried positions are negative
     }
-    if (lane == 0) {
-      s_pf[(base - l - 1) & M] = 0;
-      s_pr[(base - l - 1) & M] = 0;
-    }
+    if (lane == 0) s_p[ring_slot<S::ring>(base - l - 1)] = P{0, 0};
   }
+  __syncthreads();
+  P pb = s_p[ring_slot<S::ring>(base - 1)];  // PF(base - 1), PR(base - 1)
 
   const int length = lengths[b], limit = limits[b];
   const int t0 = t * tile, t1 = min(L, t0 + tile);
+  const int hi = do_hpc ? min(t1, length) : t1;  // kept positions lie below
+  const uint8_t* row = codes + (size_t)b * L;
+  const int lo = t0 - misalign(row + t0);  // position of run 0's byte 0
+  const uint4* src = reinterpret_cast<const uint4*>(row + lo);
+  const int nrun = (t1 - lo + V - 1) / V;
+  // A window is valid at 0 <= f <= limit, and selected at hash <= hb.
+  const uint32_t ulim = (uint32_t)limit;
+  const T hb = strict ? bound - 1 : bound;
+  const uint32_t any = limit >= 0 && !(strict && bound == 0) ? ~0u : 0u;
   int tile_raw = 0;
-  for (int c0 = t0; c0 < t1; c0 += NT) {
-    const int g0 = t0 + (c0 - t0) / SEG * SEG;  // the staged segment's start
-    const uint8_t* seg = codes + (size_t)b * L + g0;
-    const int mis = misalign(seg);
-    if (c0 == g0) {
-      __syncthreads();  // the last segment's codes are read; the ring seeded
-      const uint4* src = reinterpret_cast<const uint4*>(seg - mis);
-      for (int q = tid; q < (min(t1 - g0, SEG) + mis + 15) >> 4; q += NT) {
-        reinterpret_cast<uint4*>(s_code)[q] = src[q];
+  uint4 next = tid < nrun ? src[tid] : make_uint4(0, 0, 0, 0);
+  for (int q0 = 0; q0 < nrun; q0 += TH) {
+    const int q = q0 + tid;
+    const uint4 v = next;
+    if (q + TH < nrun) next = src[q + TH];
+    const int p0 = lo + V * q;
+    // a. The run's keep mask, and its XORs by rank inside the run.
+    const int a = min(max(t0 - p0, 0), V), z = min(max(hi - p0, 0), V);
+    uint32_t mask = ((1u << z) - 1u) & ~((1u << a) - 1u);
+    if (do_hpc) {
+      mask &= keep_bits(v.x) | keep_bits(v.y) << 4 | keep_bits(v.z) << 8 |
+              keep_bits(v.w) << 12;
+    }
+    // Every position is walked without a branch, kept or not, so that the
+    // compiler issues a phase's shared-memory loads together: a position
+    // that is not kept adds nothing and stores nothing.
+    T pf[V], pr[V];  // the run's prefixes by rank inside it, then PF, PR
+    Seg<H> own = {0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const uint32_t k = mask >> i & 1u;
+      const T km = (T)0 - (T)k;  // all ones where kept
+      const P s = s_seed[byte_of(v, i) & 7u];
+      own.f ^= rol_small<H>(s.f, H::W - own.n) & km;  // own.n < V <= W
+      own.r ^= rol_small<H>(s.r, own.n) & km;
+      own.n += k;
+      pf[i] = own.f;
+      pr[i] = own.r;
+    }
+    // b. The block scan of (n, xf, xr): the warp's by shuffles, then the
+    // warps' totals.
+    Seg<H> inc = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const Seg<H> u = {__shfl_up_sync(FULL, inc.n, o), __shfl_up_sync(FULL, inc.f, o),
+                        __shfl_up_sync(FULL, inc.r, o)};
+      if (lane >= o) inc = then<H>(u, inc);
+    }
+    if (lane == 31) s_warp[warp] = inc;
+    __syncthreads();
+    // The thread's exclusive value in its warp (inc = exc, then own), then
+    // in the block.
+    const int en = inc.n - own.n;
+    const Seg<H> exc = {en, inc.f ^ H::rol(own.f, H::neg((uint32_t)en)),
+                        inc.r ^ H::rol(own.r, (uint32_t)en)};
+    Seg<H> before = {0, 0, 0}, total = {0, 0, 0};
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w == warp) before = total;
+      total = then<H>(total, s_warp[w]);
+    }
+    before = then<H>(before, exc);
+    const int first = base + before.n;  // the rank of the thread's first element
+    // PF(first - 1) and PR(first - 1); PF and PR before the next step.
+    const T bf = pb.f ^ H::rol(before.f, H::neg((uint32_t)base));
+    const T br = pb.r ^ H::rol(before.r, (uint32_t)base);
+    pb.f ^= H::rol(total.f, H::neg((uint32_t)base));
+    pb.r ^= H::rol(total.r, (uint32_t)base);
+    // c. PF and PR at every position (at one not kept, those of the last
+    // kept element before it, or PF(first - 1)); the kept ones, with their
+    // positions, into the ring.
+    {
+      const uint32_t nf = H::red(H::neg((uint32_t)first)), rf = H::red((uint32_t)first);
+      int r = first;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        pf[i] = bf ^ rol_small<H>(pf[i], nf);
+        pr[i] = br ^ rol_small<H>(pr[i], rf);
+        if (mask >> i & 1u) {
+          const int slot = ring_slot<S::ring>(r);
+          s_p[slot] = P{pf[i], pr[i]};
+          s_pos[slot] = p0 + i;
+        }
+        r += mask >> i & 1u;
       }
-      __syncthreads();
-    }
-    const int j = c0 + tid;
-    const uint32_t x = j < t1 ? s_code[j - g0 + mis] : 0u;
-    const bool keep = kept(x, j, t1, length, do_hpc);
-    const unsigned ballot = __ballot_sync(FULL, keep);
-    if (lane == 0) s_ballot[warp] = ballot;
-    __syncthreads();
-    // The element's rank, and its terms rotated by it, XOR-scanned over the
-    // warp; then the warps' XORs combined over the block.
-    const int wn = lane < NW ? __popc(s_ballot[lane]) : 0;
-    const int cnt = __reduce_add_sync(FULL, wn);
-    const int rank = base + __reduce_add_sync(FULL, lane < warp ? wn : 0) +
-                     __popc(ballot & ((1u << lane) - 1u));
-    T f = 0, r = 0;
-    if (keep) {
-      f = H::rol(s_seed[x & 7u], H::neg((uint32_t)rank));
-      r = H::rol(s_seed[8 + (x & 7u)], (uint32_t)rank);
-    }
-    f = warp_xor_scan(f, lane);
-    r = warp_xor_scan(r, lane);
-    if (lane == 31) {
-      s_wf[warp] = f;
-      s_wr[warp] = r;
     }
     __syncthreads();
-    f ^= xor_below(s_wf, lane, warp);
-    r ^= xor_below(s_wr, lane, warp);
-    if (keep) {  // PF(rank) = PF(base - 1) ^ the step's terms up to rank
-      const int p = (base - 1) & M;
-      s_pf[rank & M] = s_pf[p] ^ f;
-      s_pr[rank & M] = s_pr[p] ^ r;
-      s_pos[rank & M] = j;
+    // d. The window each kept element emits: selected or not.
+    uint32_t sel = hpc_end
+        ? windows<H, true, V, S::ring>(pf, pr, bf, br, s_p, mask, first, l, ulim, hb)
+        : windows<H, false, V, S::ring>(pf, pr, bf, br, s_p, mask, first, l, ulim, hb);
+    sel &= any;
+    // The survivors' slots: an exclusive scan of their counts.
+    const int sn = __popc(sel);
+    int sinc = sn;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(FULL, sinc, o);
+      if (lane >= o) sinc += u;
     }
+    if (lane == 31) s_sel[warp] = sinc;
     __syncthreads();
-
-    // The window at rank fs; this step emits it when its emitting element
-    // (rank fs + l - 1, or fs + l for hpc_end) is new: tid < cnt.  A
-    // survivor's hash is computed again after the barrier, so that no
-    // thread keeps it across.
-    const int fs = base - l + tid + (hpc_end ? 0 : 1);
-    bool sel = false;
-    if (tid < cnt && fs >= 0 && fs <= limit) {
-      const T h = window_hash<H>(s_pf, s_pr, fs, l);
-      sel = strict ? (h < bound) : (h <= bound);
+    int o = tile_raw + sinc - sn, stotal = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w < warp) o += s_sel[w];
+      stotal += s_sel[w];
     }
-    const unsigned sb = __ballot_sync(FULL, sel);
-    if (lane == 0) s_bsel[warp] = sb;
-    __syncthreads();
-    const int sn = lane < NW ? __popc(s_bsel[lane]) : 0;
-    const int slot = tile_raw + __reduce_add_sync(FULL, lane < warp ? sn : 0) +
-                     __popc(sb & ((1u << lane) - 1u));
-    if (sel && slot < cap) {
-      const size_t o = ((size_t)b * nt + t) * cap + slot;
-      const T h = window_hash<H>(s_pf, s_pr, fs, l);
-      out_start[o] = s_pos[fs & M];
-      out_end[o] = hpc_end ? s_pos[(fs + l) & M] - 1 : s_pos[(fs + l - 1) & M];
-      out_hash[o] = (int32_t)(uint32_t)h;
-      if constexpr (sizeof(T) == 8) out_hash_hi[o] = (int32_t)(uint32_t)(h >> 32);
+    // Each survivor's hash again, from the ring, so that no thread keeps it.
+    for (uint32_t rest = sel; rest && o < cap; rest &= rest - 1, ++o) {
+      const int i = __ffs(rest) - 1;
+      const int e = first + __popc(mask & ((1u << i) - 1u));
+      const int f = e - l + 1 - hpc_end;
+      const P last = s_p[ring_slot<S::ring>(f + l - 1)], p = s_p[ring_slot<S::ring>(f - 1)];
+      const T h = window_hash<H>(last.f ^ p.f, last.r ^ p.r, f, l);
+      const size_t oi = ((size_t)b * nt + t) * cap + o;
+      out_start[oi] = s_pos[ring_slot<S::ring>(f)];
+      out_end[oi] = p0 + i - hpc_end;
+      out_hash[oi] = (int32_t)(uint32_t)h;
+      if constexpr (sizeof(T) == 8) out_hash_hi[oi] = (int32_t)(uint32_t)(h >> 32);
     }
-    tile_raw += __reduce_add_sync(FULL, sn);
-    base += cnt;
+    tile_raw += stotal;
+    base += total.n;
   }
   if (tid == 0) {
     int32_t* c = counts + ((size_t)b * nt + t) * 3;
@@ -405,9 +585,10 @@ cudaError_t launch_scan(const void* codes, const void* lengths,
                         int strict, int do_hpc, int hpc_end, int tile, int cap,
                         int nt, cudaStream_t s) {
   using T = typename H::T;
-  constexpr int smem = RING * (2 * (int)sizeof(T) + 4) + SEG + 16;
-  static_assert(smem <= 40 * 1024, "more needs cudaFuncSetAttribute");
-  scan_kernel<H><<<dim3(nt, B), NT, smem, s>>>(
+  using S = ScanShape<H>;
+  constexpr int smem = S::slots * (int)(sizeof(Pair<H>) + sizeof(int32_t));
+  static_assert(smem <= 48 * 1024, "more needs cudaFuncSetAttribute");
+  scan_kernel<H><<<dim3(nt, B), S::threads, smem, s>>>(
       (const uint8_t*)codes, (const int32_t*)lengths, (const int32_t*)limits,
       (const T*)seeds, (const int32_t*)base, (const int32_t*)pending,
       (int32_t*)out_start, (int32_t*)out_end, (int32_t*)out_hash,

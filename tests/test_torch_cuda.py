@@ -137,6 +137,89 @@ def test_fused_scan_kernel_edges(cuda, mode):
             assert torch.equal(valid_slots(g, got[3]), w)
 
 
+# Pass 3 takes a run of 16 bases a thread and 96 threads a step; each case
+# puts one of its edges in every tile: (mode, l, hash_width, variant, L,
+# tile, cap, density, homopolymer stretch).
+RUN_CASES = {
+    # rows not 16-byte aligned (L % 16 != 0), runs across the tile ends,
+    # the ragged last tile and every read's length
+    "unaligned-regular": ("regular", 31, 32, "nthash1", 20007, 1000, None, 0.05, False),
+    "unaligned-hpcsimd": ("hpcsimd", 31, 32, "nthash1", 40009, 16384, None, 0.05, False),
+    "unaligned-hpc-u16": ("hpc", 31, 16, "nthash1", 33333, 3000, None, 0.05, False),
+    # homopolymer stretches of 10,000 bases: steps that keep nothing
+    "homopolymer-hpc-u64": ("hpc", 31, 64, "nthash1", 40000, 16384, None, 0.05, True),
+    "homopolymer-nthash2": ("hpcsimd", 31, 32, "nthash2", 40000, 4096, None, 0.05, True),
+    # l = 255 with every base kept: PF(f - 1) from 16 threads back, and
+    # from the step before across the ring's wrap
+    "l255-regular-u32": ("regular", 255, 32, "nthash1", 60000, 16384, None, 0.05, False),
+    "l255-regular-u64": ("regular", 255, 64, "nthash1", 60000, 16384, None, 0.05, False),
+    # hpc_end at the least l
+    "l2-hpc-end-u32": ("hpc", 2, 32, "nthash1", 30000, 16384, None, 0.05, False),
+    "l2-hpc-end-nthash2": ("hpc", 2, 32, "nthash2", 30000, 16384, None, 0.05, True),
+    # cap = 1 with survivors in many threads of one step
+    "cap1-regular": ("regular", 31, 32, "nthash1", 30000, 16384, 1, 0.5, False),
+    "cap1-hpc": ("hpc", 14, 64, "nthash1", 30000, 16384, 1, 0.5, False),
+}
+
+
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_fused_scan_kernel_runs(cuda, case):
+    mode, l, hash_width, variant, L, tile, cap, density, runs = RUN_CASES[case]
+    codes, lengths = _batch(L + l, B=5, L=L, runs=runs)
+    spec = PipelineSpec(l=l, k=3, density=density, mode=mode, hash_width=hash_width,
+                        variant=variant)
+    args = (codes.to(cuda), lengths.to(cuda), *_scan_args(spec, lengths.to(cuda)), tile,
+            tile if cap is None else cap, hash_width, variant)
+    got = fused_minimizer_scan(*args)
+    want = fused_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], want[3])
+    if cap == 1:  # tiles overflowed
+        assert int(got[3][:, :, 1].sum()) > int(got[3][:, :, 0].sum())
+    for g, w in zip(_hash_cols(got[:3]), _hash_cols(want[:3])):
+        assert torch.equal(valid_slots(g, got[3]), w)
+
+
+@pytest.mark.parametrize(
+    "mode,hash_width,variant",
+    [("regular", 16, "nthash1"), ("hpc", 16, "nthash1"), ("hpcsimd", 32, "nthash2"),
+     ("hpc", 32, "nthash2"), ("regular", 64, "nthash1"), ("hpc", 64, "nthash1")],
+)
+@pytest.mark.parametrize("l", [31, 255])
+def test_fused_scan_kernel_carry_chain(cuda, mode, hash_width, variant, l):
+    """Three chunks of a row, each resumed from the carry of the one before:
+    the kernel's chain against the plain version's, chunk by chunk."""
+    C = 20000
+    codes, lengths = _batch(3 * l + hash_width, B=4, L=3 * C, runs=True)
+    codes, lengths = codes.to(cuda), lengths.to(cuda)
+    spec = PipelineSpec(l=l, k=3, density=0.05, mode=mode, hash_width=hash_width,
+                        variant=variant)
+    limit, *rest = _scan_args(spec, lengths)
+    chains = {}
+    for name, scan in (("kernel", fused_minimizer_scan), ("plain", fused_scan_plain)):
+        base, carry, outs = None, None, []
+        for i in range(3):
+            args = (codes[:, i * C:(i + 1) * C].contiguous(),
+                    (lengths - i * C).clamp(0, C).to(torch.int32), limit, *rest, 4096, 256,
+                    hash_width, variant, base, carry, True)
+            out = scan(*args)
+            outs.append(out)
+            kept = out[3][:, :, 2].sum(dim=1, dtype=torch.int32)
+            base = kept if base is None else base + kept
+            carry = out[4] - (C << 3)
+        chains[name] = outs
+    torch.cuda.synchronize()
+    base = torch.zeros(4, dtype=torch.int64, device=cuda)
+    for got, want in zip(chains["kernel"], chains["plain"]):
+        assert torch.equal(got[3], want[3])
+        for g, w in zip(_hash_cols(got[:3]), _hash_cols(want[:3])):
+            assert torch.equal(valid_slots(g, got[3]), w)
+        base += got[3][:, :, 2].sum(dim=1)
+        for b in range(4):  # the carry's real elements: the last min(base, l)
+            n = min(int(base[b]), l)
+            assert torch.equal(got[4][b, l - n:], want[4][b, l - n:])
+
+
 @pytest.mark.parametrize("m,tile", [(1, 2048), (500, 2048), (100000, 2048), (3000, 16)])
 def test_slot_compact_kernel(cuda, m, tile):
     """tile=16 gives 3125 tiles a read: the kernel scans the counts in
