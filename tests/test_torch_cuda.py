@@ -1320,3 +1320,27 @@ def test_text_never_encoded_on_the_host_on_card(cuda, monkeypatch):
     want_s = long_read.minimizer_stream_long_batch(xcodes, spec, chunk=1 << 16, device=cuda)
     for g, w in zip(got_s, want_s):
         assert all(np.array_equal(a, b) for a, b in zip(g, w))
+
+
+def test_kminmers_batch_hpc_u64_equals_the_plain_reference(cuda):
+    """``kminmers_batch`` at the spec of the benchmark's u64 configuration
+    (hpc, l=31, k=5, d=0.01, 64-bit minimizer hashes) on one [32, 2^20]
+    batch of uniform ACGT xcodes, every row full, equals the benchmark's
+    plain PyTorch reference on every row, record for record."""
+    from benchmark import generate
+    from benchmark.reference import kminmers_torch as reference
+
+    B, L = 32, 1 << 20
+    codes = generate.draw_pool(2**33 + 18, 1, B, L, cuda)[0]
+    lengths = torch.full((B,), L, dtype=torch.int32, device=cuda)
+    spec = PipelineSpec(l=31, k=5, density=0.01, mode="hpc", hash_width=64)
+    out = kminmers_batch(codes, lengths, spec)
+    want = reference.kminmers_rows(codes, lengths, 31, 5, 0.01, "hpc", 64, xcodes=True)
+    got_hash = (out.hash_hi.to(torch.int64) << 32) | (out.hash_lo.to(torch.int64) & 0xFFFFFFFF)
+    for r, w in enumerate(want):
+        n = int(out.n_kminmers[r])
+        assert n == len(w["hash"]) > 7000, r
+        assert torch.equal(got_hash[r, :n], w["hash"]), r
+        assert torch.equal(out.start[r, :n].to(torch.int64), w["start"]), r
+        assert torch.equal(out.end[r, :n].to(torch.int64), w["end"]), r
+        assert torch.equal(out.rev[r, :n].to(torch.bool), w["rev"]), r
