@@ -35,7 +35,9 @@
 //      seeds its stream from its pending prefix and walks its own tile in
 //      steps of threads x run bases (ScanShape<H>), each thread a run of
 //      16 consecutive bases read straight from device memory by one
-//      16-byte load, coalesced across the warp.
+//      16-byte load, coalesced across the warp.  Width 64 runs the same
+//      steps in its own kernel, scan_kernel<H64>, in other frames (its
+//      note, below).
 //
 // The window hash: the pre-rotated terms af[e] = rol(seed[c], -r) and
 // ar[e] = rol(seed'[c], r) combine only by XOR, so the block keeps running
@@ -77,20 +79,28 @@
 // codes in shared memory.
 //
 // Shape (ScanShape<H>), from measurement on the H100: 96 threads (64 and
-// 128 ran slower at every width), a ring of 2048 ranks in 2176 slots,
-// 26,112 bytes at widths 16, 31 and 32 (8 blocks a SM, 80 registers a
-// thread; at 32 one 4-byte spill, a store and a load a step) and 43,520
-// at 64 (4 blocks a SM, 168 registers).
+// 128 ran slower at every width), runs of 16 bases, a ring of 2048 ranks
+// in 2176 slots.  Widths 16, 31 and 32: 26,112 bytes and 80 registers (at
+// 32 one 4-byte spill, a store and a load a step), 8 blocks a SM.  Width
+// 64, its own kernel (scan_kernel<H64>, below): 43,520 bytes and 128
+// registers, 5 blocks a SM, as many as the shared memory holds (the
+// template gave it 168 registers and 4).  Runs of 8 there (a ring of 1024
+// ranks, 23,040 bytes, 8 blocks a SM at 80 registers) ran slower: the
+// block scan's share of a step doubles, and the warps a SM were not what
+// bound it.
 //
 // Bound on this card: it reads 1 byte per base twice (passes 1 and 3) and
 // writes ~12 bytes per survivor (~1% of bases), so bytes allow ~0.01 ms at
 // the [32, 1 Mbp] main-path shape.  What binds pass 3 is its instructions
-// per base: by cuobjdump -sass at width 32, ~60 a base in the loop (a
-// step of 16 bases ~966: the keep mask, seed loads, rotations and XORs of
-// a and c, the ring's addresses and stores, d's loads and hashes, the
-// scans), against ~247 a base before (the 640-thread loop's body for each
-// base); and the ring's banks, where the hpc modes' ragged runs put
-// threads' ranks at random distances.
+// per base, most of them on the integer pipe (64 lanes a clock a SM): by
+// cuobjdump -sass, a step of the loop executes ~63 a base at width 32
+// (~42 on that pipe; a step of 16 bases ~1000: the keep mask, seed loads,
+// rotations and XORs of a and c, the ring's addresses and stores, d's
+// loads and hashes, the scans), against ~247 a base before (the 640-thread
+// loop's body for each base), and ~86 at width 64 (~60 on that pipe),
+// against ~122 (~86) when width 64 ran the template; and the ring's banks,
+// where the hpc modes' ragged runs put threads' ranks at random distances
+// (at width 64 8-byte accesses conflict less there than 4-byte halves).
 //
 // Output contract: the survivors whose window's emitting element lies in
 // tile t (its last element, or its one-past-last element in hpc mode) are
@@ -262,7 +272,7 @@ template <typename H>
 struct ScanShape {
   static constexpr int run = 16;
   static constexpr int threads = 96;
-  static constexpr int min_blocks = sizeof(typename H::T) == 8 ? 4 : 8;
+  static constexpr int min_blocks = sizeof(typename H::T) == 8 ? 5 : 8;
   static constexpr int ring = pow2_at_least(threads * run + LMAX + 1);
   static constexpr int slots = ring + ring / 16;
 };
@@ -544,7 +554,320 @@ scan_kernel(
       out_start[oi] = s_pos[ring_slot<S::ring>(f)];
       out_end[oi] = p0 + i - hpc_end;
       out_hash[oi] = (int32_t)(uint32_t)h;
-      if constexpr (sizeof(T) == 8) out_hash_hi[oi] = (int32_t)(uint32_t)(h >> 32);
+    }
+    tile_raw += stotal;
+    base += total.n;
+  }
+  if (tid == 0) {
+    int32_t* c = counts + ((size_t)b * nt + t) * 3;
+    c[0] = min(tile_raw, cap);
+    c[1] = tile_raw;
+    c[2] = base - base_in[bt];
+  }
+}
+
+// ---- pass 3 at width 64: scan_kernel<H64> ----------------------------------
+//
+// The same steps, in frames that spare the 64-bit values their rotates a
+// base.  Width 64 keeps a rank's values as G(r) = rol(PF(r), r) and Q(r) =
+// rol(PR(r), l - 1 - r).  The window at f whose last rank is w = f + l - 1
+// then has
+//   fh = rol(PF(w) ^ PF(f - 1), w) = G(w) ^ rol(G(f - 1), l),
+//   rh = rol(PR(w) ^ PR(f - 1), -f) = Q(w) ^ rol(Q(f - 1), -l),
+// and along the stream G(r) = rol(G(r - 1), 1) ^ seed[c_r] and Q(r) =
+// rol(Q(r - 1), -1) ^ rol(seed'[c_r], l - 1): rotates by the kept bit a
+// base, and by l, fixed for the launch, a window.  A value is two 32-bit
+// halves, rotated by funnel shifts, by 32 by swapping them.  The block
+// scan stays in PF and PR.
+
+// By any r, taken mod 64: the halves swapped where bit 5 of r is set (a
+// clamped funnel shift by 0 or 32 each), then a funnel shift each.
+__device__ __forceinline__ uint64_t rol64_halves(uint64_t x, uint32_t r) {
+  const uint32_t x0 = (uint32_t)x, x1 = (uint32_t)(x >> 32), s = r & 32u;
+  const uint32_t lo = __funnelshift_lc(x1, x0, s), hi = __funnelshift_lc(x0, x1, s);
+  return (uint64_t)__funnelshift_l(lo, hi, r) << 32 | __funnelshift_l(hi, lo, r);
+}
+
+// By n and by -n, n taken mod 32 as a funnel shift takes it: no swap.
+__device__ __forceinline__ uint64_t rol64_below32(uint64_t x, uint32_t n) {
+  const uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+  return (uint64_t)__funnelshift_l(lo, hi, n) << 32 | __funnelshift_l(hi, lo, n);
+}
+
+__device__ __forceinline__ uint64_t ror64_below32(uint64_t x, uint32_t n) {
+  const uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+  return (uint64_t)__funnelshift_r(hi, lo, n) << 32 | __funnelshift_r(lo, hi, n);
+}
+
+__device__ __forceinline__ Seg<H64> then64(const Seg<H64>& a, const Seg<H64>& b) {
+  return {a.n + b.n, a.f ^ rol64_halves(b.f, 0u - (uint32_t)a.n),
+          a.r ^ rol64_halves(b.r, (uint32_t)a.n)};
+}
+
+// The ring at width 64: G at `slot` of the first array, Q of the second;
+// then the positions.  One 8-byte access a value, as its register pair
+// holds it.
+struct Ring64 {
+  static constexpr int slots = ScanShape<H64>::slots;
+  uint64_t* mem;
+
+  __device__ __forceinline__ uint64_t get(int a, int slot) const { return mem[a * slots + slot]; }
+  __device__ __forceinline__ void put(int slot, uint64_t g, uint64_t q) const {
+    mem[slot] = g;
+    mem[slots + slot] = q;
+  }
+  __device__ __forceinline__ int32_t* pos() const {
+    return reinterpret_cast<int32_t*>(mem + 2 * slots);
+  }
+};
+
+// x rotated by 32 where SW is 1: its halves' registers swapped.
+template <uint32_t SW>
+__device__ __forceinline__ uint64_t turn32(uint64_t x) {
+  return SW ? x << 32 | x >> 32 : x;
+}
+
+// Step d at width 64, as windows(): G(w), Q(w) from the registers (g[i],
+// or with HE g[i - 1], or G(first - 1)), G(f - 1), Q(f - 1) from the ring,
+// rotated by l and -l: by 32 where SF (SR), bit 5 of l (-l), is set, which
+// swaps registers, then by a funnel shift a half.  A window is selected
+// where either strand's hash is at most hb, which takes no 64-bit min.
+template <bool HE, uint32_t SF, uint32_t SR, int V>
+__device__ __forceinline__ uint32_t windows64(const uint64_t (&g)[V], const uint64_t (&q)[V],
+                                              uint64_t gb, uint64_t qb, const Ring64& ring,
+                                              uint32_t mask, int first, int l, uint32_t ulim,
+                                              uint64_t hb) {
+  constexpr int RING = ScanShape<H64>::ring;
+  const uint32_t lf = (uint32_t)l, lr = 0u - lf;
+  uint32_t sel = 0;
+  int e = first;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int f = e - l + 1 - HE;
+    const int slot = ring_slot<RING>(f - 1);
+    const uint64_t gw = HE ? (i ? g[i > 0 ? i - 1 : 0] : gb) : g[i];
+    const uint64_t qw = HE ? (i ? q[i > 0 ? i - 1 : 0] : qb) : q[i];
+    const uint64_t fh = gw ^ rol64_below32(turn32<SF>(ring.get(0, slot)), lf);
+    const uint64_t rh = qw ^ rol64_below32(turn32<SR>(ring.get(1, slot)), lr);
+    const uint32_t k = mask >> i & 1u;
+    sel |= (k & (uint32_t)((uint32_t)f <= ulim) & (uint32_t)((fh <= hb) | (rh <= hb))) << i;
+    e += k;
+  }
+  return sel;
+}
+
+// windows64 for the launch's turn = (bit 5 of l) * 2 + (bit 5 of -l): a
+// branch that every thread takes alike, step after step.
+template <bool HE, int V>
+__device__ __forceinline__ uint32_t windows64(uint32_t turn, const uint64_t (&g)[V],
+                                              const uint64_t (&q)[V], uint64_t gb, uint64_t qb,
+                                              const Ring64& ring, uint32_t mask, int first, int l,
+                                              uint32_t ulim, uint64_t hb) {
+  switch (turn) {
+    case 0: return windows64<HE, 0, 0>(g, q, gb, qb, ring, mask, first, l, ulim, hb);
+    case 1: return windows64<HE, 0, 1>(g, q, gb, qb, ring, mask, first, l, ulim, hb);
+    case 2: return windows64<HE, 1, 0>(g, q, gb, qb, ring, mask, first, l, ulim, hb);
+    default: return windows64<HE, 1, 1>(g, q, gb, qb, ring, mask, first, l, ulim, hb);
+  }
+}
+
+template <>
+__global__ void __launch_bounds__(ScanShape<H64>::threads, ScanShape<H64>::min_blocks)
+scan_kernel<H64>(
+    const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
+    const int32_t* __restrict__ limits, const uint64_t* __restrict__ seeds,
+    const int32_t* __restrict__ base_in, const int32_t* __restrict__ pending,
+    int32_t* __restrict__ out_start, int32_t* __restrict__ out_end,
+    int32_t* __restrict__ out_hash, int32_t* __restrict__ out_hash_hi,
+    int32_t* __restrict__ counts, int L, int l, uint64_t bound,
+    int strict, int do_hpc, int hpc_end, int tile, int cap, int nt) {
+  using T = uint64_t;
+  using S = ScanShape<H64>;
+  using P = Pair<H64>;
+  constexpr int V = S::run, TH = S::threads, NW = TH / 32;
+  static_assert(V == 16, "a run is one 16-byte load");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Ring64 ring{reinterpret_cast<uint64_t*>(smem)};
+  int32_t* s_pos = ring.pos();
+  __shared__ P s_seed[8];  // code c: (forward seed, reverse seed)
+  __shared__ P s_term[8];  // code c's terms of G and Q: (seed[c], rol(seed'[c], l - 1))
+  __shared__ Seg<H64> s_warp[NW];  // each warp's (n, xf, xr)
+  __shared__ int s_sel[NW];  // each warp's survivors
+
+  const int t = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (tid < 8) {
+    s_seed[tid] = P{seeds[tid], seeds[8 + tid]};
+    s_term[tid] = P{seeds[tid], rol64_halves(seeds[8 + tid], (uint32_t)(l - 1))};
+  }
+  __syncthreads();
+  const size_t bt = (size_t)b * (nt + 1) + t;
+  int base = base_in[bt];  // the rank of the next stream element
+
+  // The pending prefix, ranks base - l .. base - 1, by warp 0, 8 a lane:
+  // PF and PR as in scan_kernel<H>, into the ring as G and Q.
+  if (warp == 0) {
+    const int32_t* pend = pending + bt * l;
+    const int k0 = lane * 8, k1 = min(l, k0 + 8);
+    T xf = 0, xr = 0;
+    for (int k = k0; k < k1; ++k) {
+      const int32_t p = pend[k];
+      const int r = base - l + k;
+      if (r >= 0) {
+        xf ^= rol64_halves(s_seed[p & 7].f, 0u - (uint32_t)r);
+        xr ^= rol64_halves(s_seed[p & 7].r, (uint32_t)r);
+      }
+    }
+    T pf = s2k::warp_xor_scan(xf, lane) ^ xf;
+    T pr = s2k::warp_xor_scan(xr, lane) ^ xr;
+    for (int k = k0; k < k1; ++k) {
+      const int32_t p = pend[k];
+      const int r = base - l + k;
+      if (r >= 0) {
+        pf ^= rol64_halves(s_seed[p & 7].f, 0u - (uint32_t)r);
+        pr ^= rol64_halves(s_seed[p & 7].r, (uint32_t)r);
+      }
+      const int slot = ring_slot<S::ring>(r);
+      ring.put(slot, rol64_halves(pf, (uint32_t)r), rol64_halves(pr, (uint32_t)(l - 1 - r)));
+      s_pos[slot] = p >> 3;  // arithmetic: carried positions are negative
+    }
+    if (lane == 0) ring.put(ring_slot<S::ring>(base - l - 1), 0, 0);
+  }
+  __syncthreads();
+  // PF(base - 1) and PR(base - 1), from G and Q.
+  P pb = {rol64_halves(ring.get(0, ring_slot<S::ring>(base - 1)), (uint32_t)(1 - base)),
+          rol64_halves(ring.get(1, ring_slot<S::ring>(base - 1)), (uint32_t)(base - l))};
+
+  const int length = lengths[b], limit = limits[b];
+  const int t0 = t * tile, t1 = min(L, t0 + tile);
+  const int hi = do_hpc ? min(t1, length) : t1;  // kept positions lie below
+  const uint8_t* row = codes + (size_t)b * L;
+  const int lo = t0 - misalign(row + t0);  // position of run 0's byte 0
+  const uint4* src = reinterpret_cast<const uint4*>(row + lo);
+  const int nrun = (t1 - lo + V - 1) / V;
+  // A window is valid at 0 <= f <= limit, and selected at hash <= hb.
+  const uint32_t ulim = (uint32_t)limit;
+  const T hb = strict ? bound - 1 : bound;
+  const uint32_t any = limit >= 0 && !(strict && bound == 0) ? ~0u : 0u;
+  const uint32_t turn = ((uint32_t)l >> 4 & 2u) | ((0u - (uint32_t)l) >> 5 & 1u);
+  int tile_raw = 0;
+  uint4 next = tid < nrun ? src[tid] : make_uint4(0, 0, 0, 0);
+  for (int q0 = 0; q0 < nrun; q0 += TH) {
+    const int q = q0 + tid;
+    const uint4 v = next;
+    if (q + TH < nrun) next = src[q + TH];
+    const int p0 = lo + V * q;
+    // a. The run's keep mask, and its XORs by rank inside the run: G's and
+    // Q's recurrences from 0, which leave them rotated by n - 1 and by l - n
+    // for n kept, turned back after.
+    const int a = min(max(t0 - p0, 0), V), z = min(max(hi - p0, 0), V);
+    uint32_t mask = ((1u << z) - 1u) & ~((1u << a) - 1u);
+    if (do_hpc) {
+      mask &= keep_bits(v.x) | keep_bits(v.y) << 4 | keep_bits(v.z) << 8 |
+              keep_bits(v.w) << 12;
+    }
+    Seg<H64> own = {__popc(mask), 0, 0};
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const uint32_t k = mask >> i & 1u;
+      const T km = (T)(0u - k) << 32 | (0u - k);  // all ones where kept
+      const P s = s_term[byte_of(v, i) & 7u];
+      own.f = rol64_below32(own.f, k) ^ (s.f & km);
+      own.r = ror64_below32(own.r, k) ^ (s.r & km);
+    }
+    own.f = rol64_halves(own.f, (uint32_t)(1 - own.n));
+    own.r = rol64_halves(own.r, (uint32_t)(own.n - l));
+    // b. The block scan of (n, xf, xr): the counts by shuffles first, then
+    // each thread's XORs, moved to its first rank in the warp, by XOR
+    // scans; then the warps' totals.
+    Seg<H64> inc = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(FULL, inc.n, o);
+      if (lane >= o) inc.n += u;
+    }
+    const int en = inc.n - own.n;
+    const T mf = rol64_halves(own.f, 0u - (uint32_t)en), mr = rol64_halves(own.r, (uint32_t)en);
+    inc.f = s2k::warp_xor_scan(mf, lane);
+    inc.r = s2k::warp_xor_scan(mr, lane);
+    if (lane == 31) s_warp[warp] = inc;
+    __syncthreads();
+    const Seg<H64> exc = {en, inc.f ^ mf, inc.r ^ mr};
+    Seg<H64> before = {0, 0, 0}, total = {0, 0, 0};
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w == warp) before = total;
+      total = then64(total, s_warp[w]);
+    }
+    before = then64(before, exc);
+    const int first = base + before.n;  // the rank of the thread's first element
+    // PF(first - 1) and PR(first - 1) as G(first - 1) and Q(first - 1); PF
+    // and PR before the next step.
+    const T gb = rol64_halves(pb.f ^ rol64_halves(before.f, 0u - (uint32_t)base),
+                              (uint32_t)(first - 1));
+    const T qb = rol64_halves(pb.r ^ rol64_halves(before.r, (uint32_t)base),
+                              (uint32_t)(l - first));
+    pb.f ^= rol64_halves(total.f, 0u - (uint32_t)base);
+    pb.r ^= rol64_halves(total.r, (uint32_t)base);
+    // c. G and Q at every position (at one not kept, those of the last kept
+    // element before it, or of first - 1), by their recurrences; the kept
+    // ones, with their positions, into the ring.
+    T g[V], gq[V];
+    {
+      T x = gb, y = qb;
+      int r = first;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const uint32_t k = mask >> i & 1u;
+        const T km = (T)(0u - k) << 32 | (0u - k);
+        const P s = s_term[byte_of(v, i) & 7u];
+        x = rol64_below32(x, k) ^ (s.f & km);
+        y = ror64_below32(y, k) ^ (s.r & km);
+        g[i] = x;
+        gq[i] = y;
+        if (k) {
+          const int slot = ring_slot<S::ring>(r);
+          ring.put(slot, x, y);
+          s_pos[slot] = p0 + i;
+        }
+        r += k;
+      }
+    }
+    __syncthreads();
+    // d. The window each kept element emits: selected or not.
+    uint32_t sel = hpc_end ? windows64<true>(turn, g, gq, gb, qb, ring, mask, first, l, ulim, hb)
+                           : windows64<false>(turn, g, gq, gb, qb, ring, mask, first, l, ulim, hb);
+    sel &= any;
+    // The survivors' slots: an exclusive scan of their counts.
+    const int sn = __popc(sel);
+    int sinc = sn;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(FULL, sinc, o);
+      if (lane >= o) sinc += u;
+    }
+    if (lane == 31) s_sel[warp] = sinc;
+    __syncthreads();
+    int o = tile_raw + sinc - sn, stotal = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (w < warp) o += s_sel[w];
+      stotal += s_sel[w];
+    }
+    // Each survivor's hash again, from the ring, so that no thread keeps it.
+    for (uint32_t rest = sel; rest && o < cap; rest &= rest - 1, ++o) {
+      const int i = __ffs(rest) - 1;
+      const int e = first + __popc(mask & ((1u << i) - 1u));
+      const int f = e - l + 1 - hpc_end;
+      const int sw = ring_slot<S::ring>(f + l - 1), sf = ring_slot<S::ring>(f - 1);
+      const T fh = ring.get(0, sw) ^ rol64_halves(ring.get(0, sf), (uint32_t)l);
+      const T rh = ring.get(1, sw) ^ rol64_halves(ring.get(1, sf), 0u - (uint32_t)l);
+      const T h = fh < rh ? fh : rh;
+      const size_t oi = ((size_t)b * nt + t) * cap + o;
+      out_start[oi] = s_pos[ring_slot<S::ring>(f)];
+      out_end[oi] = p0 + i - hpc_end;
+      out_hash[oi] = (int32_t)(uint32_t)h;
+      out_hash_hi[oi] = (int32_t)(uint32_t)(h >> 32);
     }
     tile_raw += stotal;
     base += total.n;

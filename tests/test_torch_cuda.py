@@ -75,9 +75,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _batch(seed, B, L, runs=False):
+def _batch(seed, B, L, runs=False, distinct=False):
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 6, size=(B, L))
+    if distinct:  # no base equals the one before it: the hpc modes keep every base
+        codes = np.cumsum(rng.integers(1, 4, size=(B, L)), axis=1) % 4
     if runs:  # long homopolymer runs: whole tiles keep nothing
         codes[:, L // 4 : L // 2] = 2
     codes = with_keep_bits(codes)
@@ -137,35 +139,52 @@ def test_fused_scan_kernel_edges(cuda, mode):
             assert torch.equal(valid_slots(g, got[3]), w)
 
 
-# Pass 3 takes a run of 16 bases a thread and 96 threads a step; each case
-# puts one of its edges in every tile: (mode, l, hash_width, variant, L,
-# tile, cap, density, homopolymer stretch).
+# Pass 3 takes a run of 16 bases a thread and 96 threads a step (width 64
+# in a kernel of its own); each case puts one of its edges in every tile:
+# (mode, l, hash_width, variant, L, tile, cap, density, data: "random",
+# "homopolymer" (a stretch of one base) or "distinct" (no base equal to the
+# one before)).  Rows 1 and 2 end at a tile's edge and 3 bases past one,
+# inside a run.
 RUN_CASES = {
     # rows not 16-byte aligned (L % 16 != 0), runs across the tile ends,
     # the ragged last tile and every read's length
-    "unaligned-regular": ("regular", 31, 32, "nthash1", 20007, 1000, None, 0.05, False),
-    "unaligned-hpcsimd": ("hpcsimd", 31, 32, "nthash1", 40009, 16384, None, 0.05, False),
-    "unaligned-hpc-u16": ("hpc", 31, 16, "nthash1", 33333, 3000, None, 0.05, False),
+    "unaligned-regular": ("regular", 31, 32, "nthash1", 20007, 1000, None, 0.05, "random"),
+    "unaligned-hpcsimd": ("hpcsimd", 31, 32, "nthash1", 40009, 16384, None, 0.05, "random"),
+    "unaligned-hpc-u16": ("hpc", 31, 16, "nthash1", 33333, 3000, None, 0.05, "random"),
+    "unaligned-regular-u64": ("regular", 31, 64, "nthash1", 20007, 1000, None, 0.05, "random"),
+    "unaligned-hpc-u64": ("hpc", 31, 64, "nthash1", 33333, 3000, None, 0.05, "random"),
     # homopolymer stretches of 10,000 bases: steps that keep nothing
-    "homopolymer-hpc-u64": ("hpc", 31, 64, "nthash1", 40000, 16384, None, 0.05, True),
-    "homopolymer-nthash2": ("hpcsimd", 31, 32, "nthash2", 40000, 4096, None, 0.05, True),
+    "homopolymer-hpc-u64": ("hpc", 31, 64, "nthash1", 40000, 16384, None, 0.05, "homopolymer"),
+    "homopolymer-nthash2": ("hpcsimd", 31, 32, "nthash2", 40000, 4096, None, 0.05, "homopolymer"),
     # l = 255 with every base kept: PF(f - 1) from 16 threads back, and
     # from the step before across the ring's wrap
-    "l255-regular-u32": ("regular", 255, 32, "nthash1", 60000, 16384, None, 0.05, False),
-    "l255-regular-u64": ("regular", 255, 64, "nthash1", 60000, 16384, None, 0.05, False),
+    "l255-regular-u32": ("regular", 255, 32, "nthash1", 60000, 16384, None, 0.05, "random"),
+    "l255-regular-u64": ("regular", 255, 64, "nthash1", 60000, 16384, None, 0.05, "random"),
+    # hpc_end at l = 255 with every base kept: a full step of 1536 ranks
+    # and the 256 before it, the most the ring holds at once
+    "l255-hpc-end-u64": ("hpc", 255, 64, "nthash1", 60000, 16384, None, 0.05, "distinct"),
+    "l255-hpc-end-u32": ("hpc", 255, 32, "nthash1", 60000, 16384, None, 0.05, "distinct"),
     # hpc_end at the least l
-    "l2-hpc-end-u32": ("hpc", 2, 32, "nthash1", 30000, 16384, None, 0.05, False),
-    "l2-hpc-end-nthash2": ("hpc", 2, 32, "nthash2", 30000, 16384, None, 0.05, True),
+    "l2-hpc-end-u32": ("hpc", 2, 32, "nthash1", 30000, 16384, None, 0.05, "random"),
+    "l2-hpc-end-nthash2": ("hpc", 2, 32, "nthash2", 30000, 16384, None, 0.05, "homopolymer"),
+    "l2-hpc-end-u64": ("hpc", 2, 64, "nthash1", 30000, 16384, None, 0.05, "random"),
+    "l2-regular-u64": ("regular", 2, 64, "nthash1", 30000, 4096, None, 0.05, "random"),
     # cap = 1 with survivors in many threads of one step
-    "cap1-regular": ("regular", 31, 32, "nthash1", 30000, 16384, 1, 0.5, False),
-    "cap1-hpc": ("hpc", 14, 64, "nthash1", 30000, 16384, 1, 0.5, False),
+    "cap1-regular": ("regular", 31, 32, "nthash1", 30000, 16384, 1, 0.5, "random"),
+    "cap1-hpc": ("hpc", 14, 64, "nthash1", 30000, 16384, 1, 0.5, "random"),
+    "cap1-regular-u64": ("regular", 31, 64, "nthash1", 30000, 16384, 1, 0.5, "random"),
 }
 
 
 @pytest.mark.parametrize("case", list(RUN_CASES))
 def test_fused_scan_kernel_runs(cuda, case):
-    mode, l, hash_width, variant, L, tile, cap, density, runs = RUN_CASES[case]
-    codes, lengths = _batch(L + l, B=5, L=L, runs=runs)
+    mode, l, hash_width, variant, L, tile, cap, density, data = RUN_CASES[case]
+    codes, lengths = _batch(L + l, B=5, L=L, runs=data == "homopolymer",
+                            distinct=data == "distinct")
+    edge = tile * max(1, (L // 2) // tile)  # a tile's edge inside the row
+    for row, end in ((1, edge), (2, edge + 3)):
+        lengths[row] = min(end, L)
+        codes[row, end:] = XCODE_PAD
     spec = PipelineSpec(l=l, k=3, density=density, mode=mode, hash_width=hash_width,
                         variant=variant)
     args = (codes.to(cuda), lengths.to(cuda), *_scan_args(spec, lengths.to(cuda)), tile,
@@ -185,7 +204,7 @@ def test_fused_scan_kernel_runs(cuda, case):
     [("regular", 16, "nthash1"), ("hpc", 16, "nthash1"), ("hpcsimd", 32, "nthash2"),
      ("hpc", 32, "nthash2"), ("regular", 64, "nthash1"), ("hpc", 64, "nthash1")],
 )
-@pytest.mark.parametrize("l", [31, 255])
+@pytest.mark.parametrize("l", [2, 31, 255])
 def test_fused_scan_kernel_carry_chain(cuda, mode, hash_width, variant, l):
     """Three chunks of a row, each resumed from the carry of the one before:
     the kernel's chain against the plain version's, chunk by chunk."""
