@@ -62,22 +62,21 @@ In order, and any failure raises (exit code != 0):
      batch (a tiny capacity on the fused and the general route) and checks
      that it retries and ends lossless, equal to its run on the CPU;
   6. times each path and each kernel with CUDA events, beside the plain
-     versions; prints K1's time per instance beside its time with one
-     block per read (before the tile-parallel design) and its bound, and
-     every kernel's bound
-     (the larger of its bytes over the HBM rate and its integer operations
-     over the peak rate); K2's and K3's device time under the profiler
-     beside their times before their redesign; profiles 10 main-path
-     steps and 10 general-path steps (device busy time a step, idle share,
-     device kernels a step, device time by kernel); times K4's two cases,
-     its HPC form and the general scan beside their bounds and plain
-     versions, and the general step beside its time before this design;
-     xcode's device time under the profiler at [32, 2^20] and [1, 2^25]
-     beside its bound and its plain version;
+     versions; prints K1's time per instance beside its bound, and every
+     kernel's bound (the larger of its bytes over the HBM rate and its
+     integer operations over the peak rate: ``benchmark/roofline.py``,
+     the benchmark's own yardstick, with its K1, K2 and K3 counts where
+     they count this work); K2's and K3's device time under the profiler;
+     profiles 10 main-path steps and 10 general-path steps (device busy
+     time a step, idle share, device kernels a step, device time by
+     kernel); times K4's two cases, its HPC form and the general scan
+     beside their bounds and plain versions; xcode's device time under the
+     profiler at [32, 2^20] and [1, 2^25] beside its bound and its plain
+     version;
   7. checks K1 with a carry bit for bit against its plain version: chunk 2
      of [4, 2 x 4 Mbp] reads from the carry the kernel gave on chunk 1, for
      u32 hpcsimd l=31, u64 regular l=31 and nthash2 hpc l=201, and times
-     it beside the one-block-per-read time and the bound;
+     it beside its bound;
   8. checks K5 and K6 bit for bit against their plain version at
      [512, 128] and [262144, 128], 1 and 4 payloads;
   9. runs the profiling script with the counters at zero: it checks K5 and
@@ -101,9 +100,9 @@ In order, and any failure raises (exit code != 0):
      the long read's kernels bit for bit against their plain versions at
      its shapes: K1 with a carry (carry-out included) and its passes 1-2
      and K2 on a [1, 2^25] chunk, K3 on the read's whole [1, M] minimizer
-     stream; K1's time per chunk beside the one-block-per-read time and
-     the bound; K2 on the chunk with and without its fill (the long-read
-     driver's form), checked and timed;
+     stream; K1's time per chunk beside its bound; K2 on the chunk with
+     and without its fill (the long-read driver's form), checked and
+     timed;
  11. runs the file path with the counters at zero: a seeded FASTA of ~0.5
      Gbp (``rust_seq2kminmers_torch/scripts/prof_stream.py``: 24,000 HiFi-like
      reads of 10-30 kb, 50,000 short reads, 4 wrapped contigs of 2-4 Mbp)
@@ -167,37 +166,38 @@ In order, and any failure raises (exit code != 0):
      u64 paths at [32, 1 Mbp], the capture's warm-up launches the path's
      kernels once, the capture none, and each replay what the capture
      recorded; the graph's 12 fields equal eager ``kminmer_pipeline`` and
-     the plain pipeline, and a batch survives a later call; eager and
-     graph timed in turns (CUDA events, the host's time to issue a step,
-     device busy under the profiler, the memory a capture holds:
-     ``rust_seq2kminmers_torch/scripts/prof_graph.py``); a rescue after
-     ``precompile_rescue`` captures nothing and equals the CPU run; a
-     capture that fails raises; last the twin of ``bench.py``
+     the plain pipeline, and a batch survives a later call; a rescue
+     after ``precompile_rescue`` captures nothing and equals the CPU run;
+     a capture that fails raises; last the twin of ``bench.py``
      (``rust_seq2kminmers_torch/scripts/bench.py``) at its defaults, its
      JSON line printed.
 
-Then summary lines of K1 against its one-block-per-read design, of K2
-and K3 against their designs before the redesign, and of K4 and the
-general path against theirs, and the script's wall time.  The second-to-last line
-is a JSON object with one entry per kernel (its launches on the paths,
-error, time, plain time, bound and what binds it; no PyTorch call computes
-any of these functions, so ``library_ms`` is null); the last is
-``{"ok": true, "device": {...}}``.
+Then the script's wall time.  The second-to-last line is a JSON object
+with one entry per kernel (its launches on the paths, error, time, plain
+time, bound and what binds it; no PyTorch call computes any of these
+functions, so ``library_ms`` is null); the last is ``{"ok": true,
+"device": {...}}``.
 
-A profiler session that records no device event is run again, up to
-three sessions (``prof_long_read.device_events``); after three empty ones
-the line says the device time was not measured, and a kernel's time in
-the JSON line is its CUDA-event time.  Every check still holds.
+The card's name, the CUDA-event timer and the profiler's reads are the
+measuring scripts' own (``rust_seq2kminmers_torch/scripts/common.py``).
+A profiler session that records no device event is run again, up to three
+sessions; after three empty ones the line says the device time was not
+measured, and a kernel's time in the JSON line is its CUDA-event time.
+Every check still holds.
 """
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 from unittest import mock
+
+from benchmark import roofline
+from benchmark.roofline import HBM_BYTES_PER_S, bound_s, k1_bound_s, k2_bound_s, k3_bound_s
 
 REPO = Path(__file__).resolve().parent
 SEED = 7
@@ -241,81 +241,39 @@ COUNTERS = {name: (name,) for name in KERNELS}
 COUNTERS["masked_compact"] = ("masked_compact", "hpc_compact")
 COUNTERS["fused_scan"] = ("fused_scan", "tile_carries")  # K1, and its passes 1-2 alone
 N_LONG = 300_000_000  # the reference's own long-read size (LONGREAD_r05.json)
-# The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): HBM bytes a
-# second, and its 67 T/s non-tensor float32 rate taken for the integer
-# operations, whose own rate that table does not list (so the operations'
-# time is a floor).
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-# K1's times in ms with one block per read, before its tile-parallel
-# design (PERF.md, the K1 row's earlier times).
-K1_ONE_BLOCK_MS = {
-    "u32 hpcsimd l=31": 2.5896,
-    "width 16 nthash1 regular l=31": 2.8948,
-    "width 64 nthash1 regular l=31": 4.0414,
-    "width 32 nthash2 hpcsimd l=31": 2.7285,
-    "carry u32 hpcsimd l=31": 9.4017,
-    "carry u64 regular l=31": 15.4303,
-    "carry nthash2 hpc l=201": 27.9222,
-    "long-read chunk": 79.2172,
-}
-# K2's and K3's times in ms before their redesign (PERF.md, the K2 and K3
-# rows' earlier times): device time under the profiler, or CUDA events.
-K2_K3_BEFORE_MS = {
-    "slot_compact main, device": 0.0233,
-    "slot_compact main, events": 0.0424,
-    "slot_compact with hash_hi, events": 0.0764,
-    "slot_compact long-read chunk, device": 0.6433,
-    "assemble xorshift main, device": 0.0094,
-    "assemble xorshift main, events": 0.0335,
-    "assemble murmur u16, events": 0.0438,
-    "assemble identity u64, events": 0.0528,
-}
-# K4's and the general path's times in ms before this design (PERF.md:
-# K4's row, and the general step with the plain whole-row hash).
-K4_GENERAL_BEFORE_MS = {
-    "masked_compact (a) dense HPC": 0.2494,
-    "masked_compact (b) 3 columns, 1% mask": 0.2572,
-    "general path step": 20.3379,
-}
 
 
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the operations over the peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(fn, *counts):
+    """(bound ms, what binds it) of ``fn(*counts)``, a bound in seconds by
+    ``benchmark/roofline.py``: the larger of the bytes over the HBM rate and
+    the operations over the peak rate.  The operations bind it where their
+    rate alone gives that time."""
+    seconds = fn(*counts)
+    with mock.patch.object(roofline, "HBM_BYTES_PER_S", math.inf):
+        operations = fn(*counts)
+    return seconds * 1e3, "operations" if operations >= seconds else "bytes"
 
 
-def k1_bound(codes, counts, l, width, carry):
-    """K1's least work on these inputs: each base read once, the lengths,
-    limits and (with a carry) base0, carry-in and carry-out, and each kept
-    survivor's (start, end, hash[, hash_hi]) and the counts written once;
-    integer operations: the keep test per base (3), and per stream element
-    its two rotated terms and two prefix XORs, then its window's two XORs,
-    two rotations, the min and the compare (12)."""
+def k1_bound(codes, counts, width):
+    """K1's bound on these inputs and its tiles' counts (``k1_bound_s``)."""
+    B_, nt_ = counts.shape[:2]
+    return bound(k1_bound_s, B_, codes.shape[1], nt_, int(counts[..., 0].sum()),
+                 int(counts[..., 2].sum()), width)
+
+
+def k1_carry_bound(codes, counts, l, width):
+    """K1 with a carry, which ``k1_bound_s`` does not count: its work, and
+    base0, carry-in and carry-out read or written once.  Each base read
+    once, the lengths and limits, each kept survivor's (start, end,
+    hash[, hash_hi]) and the counts written once; integer operations: the
+    keep test per base (3), and per stream element its two rotated terms
+    and two prefix XORs, then its window's two XORs, two rotations, the
+    min and the compare (12)."""
     B_, L_ = codes.shape
     survivors = int(counts[..., 0].sum())
     nbytes = (B_ * L_ + 8 * B_ + survivors * (16 if width == 64 else 12)
-              + counts.numel() * 4 + (B_ * (8 * l + 4) if carry else 0))
-    return bound(nbytes, 3 * B_ * L_ + 12 * int(counts[..., 2].sum()))
-
-
-def time_ms(fn, reps, warmup=2):
-    """CUDA-event ms a call of fn(i), over reps calls after warmup calls."""
-    import torch
-
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for i in range(reps):
-        fn(i)
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
+              + counts.numel() * 4 + B_ * (8 * l + 4))
+    return bound(bound_s, nbytes, 3 * B_ * L_ + 12 * int(counts[..., 2].sum()))
 
 
 def check(ok, msg):
@@ -547,6 +505,7 @@ def dp_rank(device, long_path):
         stitch_records,
     )
     from rust_seq2kminmers_torch.parallel.mesh import make_mesh
+    from rust_seq2kminmers_torch.scripts.common import event_ms
 
     captures = []
 
@@ -669,7 +628,7 @@ def dp_rank(device, long_path):
     turns = [("make_pipeline", graph_step), ("DP step", step),
              ("dp_step", lambda c, n: dp_step(c, n, spec, group)), ("DP step", step),
              ("make_pipeline", graph_step)]
-    times = [(what, time_ms(lambda i, f=f: f(pool[i % 2], lengths), 20)) for what, f in turns]
+    times = [(what, event_ms(lambda i, f=f: f(pool[i % 2], lengths), 20)) for what, f in turns]
     return (ran, ran_rest, captured, times, int(nk.sum()), rescues, nkl)
 
 
@@ -682,20 +641,11 @@ def _timed_step(step, x, n):
     import torch
 
     from rust_seq2kminmers_torch.parallel import seqshard
+    from rust_seq2kminmers_torch.scripts.common import timed
 
     events, gathers = [], []
     real = {name: getattr(seqshard, name)
             for name in ("tile_carries", "fused_minimizer_scan", "all_gather")}
-
-    def timed_kernel(fn):
-        def run(*args, **kwargs):
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            out = fn(*args, **kwargs)
-            e1.record()
-            events.append((e0, e1))
-            return out
-        return run
 
     def timed_gather(t, group):
         torch.cuda.synchronize()
@@ -704,8 +654,8 @@ def _timed_step(step, x, n):
         gathers.append(_time.perf_counter() - t0)
         return out
 
-    seqshard.tile_carries = timed_kernel(real["tile_carries"])
-    seqshard.fused_minimizer_scan = timed_kernel(real["fused_minimizer_scan"])
+    seqshard.tile_carries = timed(real["tile_carries"], events)
+    seqshard.fused_minimizer_scan = timed(real["fused_minimizer_scan"], events)
     seqshard.all_gather = timed_gather
     try:
         step(x, n)
@@ -1078,8 +1028,8 @@ def graph_phase(dev, card, pool, lengths, path_kernels, small, small_len) -> dic
     path's kernels once, the capture nothing, each replay what the capture
     recorded; a batch the graph returned equals eager ``kminmer_pipeline``
     and the plain pipeline, and survives a later call; then eager and
-    graph timed in turns (``scripts/prof_graph.py``).  A rescue after
-    ``precompile_rescue`` captures nothing; a capture that fails raises.
+    A rescue after ``precompile_rescue`` captures nothing; a capture
+    that fails raises.
     Last, the twin of ``bench.py`` at its defaults."""
     import torch
 
@@ -1090,7 +1040,6 @@ def graph_phase(dev, card, pool, lengths, path_kernels, small, small_len) -> dic
     from rust_seq2kminmers_torch.ops.cuda.graph import CapturedStep
     from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
     from rust_seq2kminmers_torch.scripts import bench as twin
-    from rust_seq2kminmers_torch.scripts import prof_graph as pg
 
     t0 = time.perf_counter()
     launches = {}
@@ -1136,8 +1085,6 @@ def graph_phase(dev, card, pool, lengths, path_kernels, small, small_len) -> dic
             "eager kminmer_pipeline and the plain pipeline on the card, and a batch survives "
             "a later call")
         del fn, first, second, kept
-        log(f"phase 15 on {card}: " + pg.describe(path, pg.measure_path(ps, pool, lengths)))
-        build.launches.clear()
 
     # The rescue after precompile_rescue: a tile overflow, M ample.
     rs = PipelineSpec(l=11, k=3, density=0.05, mode="hpcsimd", max_minimizers=8192,
@@ -1239,21 +1186,14 @@ def main():
     )
     from rust_seq2kminmers_torch.scripts import prof_mxu_compact as prof
     from rust_seq2kminmers_torch.scripts import prof_long_read
-    from rust_seq2kminmers_torch.scripts.prof_long_read import (
-        NOT_MEASURED,
-        device_busy,
-        device_events,
-    )
+    from rust_seq2kminmers_torch.scripts.common import NOT_MEASURED, cards, event_ms, profile
 
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    card = smi.splitlines()[0]
-    log(smi)
+    smi = cards()
+    card = smi[0]
+    log("\n".join(smi))
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
@@ -1557,24 +1497,21 @@ def main():
 
     torch.cuda.reset_peak_memory_stats(dev)
     live = torch.cuda.memory_allocated(dev)  # the inputs and earlier results
-    step_ms = time_ms(lambda i: kminmer_pipeline(pool[i % 2], lengths, spec), 20)
+    step_ms = event_ms(lambda i: kminmer_pipeline(pool[i % 2], lengths, spec), 20)
     peak_gib = (torch.cuda.max_memory_allocated(dev) - live) / 2**30
-    plain_step_ms = time_ms(
+    plain_step_ms = event_ms(
         lambda i: kminmer_pipeline_plain(pool[i % 2], lengths, spec), 3, 1
     )
     log(f"main path step [{B}, {L}] hpcsimd on {card}: {step_ms:.4f} ms = "
         f"{gbps(step_ms):.4f} GB/s (plain pipeline {plain_step_ms:.4f} ms = "
         f"{gbps(plain_step_ms):.4f} GB/s); peak device memory of a step "
         f"{peak_gib:.3f} GiB above what was live")
-    general_step_ms = None
     for path in ("general", "u64"):
         ps = path_kernels[path][0]
-        t = time_ms(lambda i: kminmer_pipeline(pool[i % 2], lengths, ps), 10)
-        tp = time_ms(lambda i: kminmer_pipeline_plain(pool[i % 2], lengths, ps), 3, 1)
+        t = event_ms(lambda i: kminmer_pipeline(pool[i % 2], lengths, ps), 10)
+        tp = event_ms(lambda i: kminmer_pipeline_plain(pool[i % 2], lengths, ps), 3, 1)
         log(f"{path} path step [{B}, {L}] on {card}: {t:.4f} ms = {gbps(t):.4f} "
             f"GB/s (plain pipeline {tp:.4f} ms = {gbps(tp):.4f} GB/s)")
-        if path == "general":
-            general_step_ms = t
 
     k1_runs = [
         fused_minimizer_scan(c, lengths, limit, *scan_args, TILE, cap) for c in pool
@@ -1591,83 +1528,67 @@ def main():
         return assemble_masked_cuda(min_hash, spec.k, 32, None, n_main, *pos_main)
 
     ms = {
-        "fused_scan": time_ms(
+        "fused_scan": event_ms(
             lambda i: fused_minimizer_scan(
                 pool[i % 2], lengths, limit, *scan_args, TILE, cap), 20),
-        "slot_compact": time_ms(k2_main, 50),
-        "assemble": time_ms(k3_main, 50),
+        "slot_compact": event_ms(k2_main, 50),
+        "assemble": event_ms(k3_main, 50),
         # K4 as the general path calls it: its HPC form.
-        "masked_compact": time_ms(lambda i: hpc_compact(pool[i % 2], lengths), 20),
-        "general_scan": time_ms(lambda i: general_minimizers(*general_main[i % 2]), 20),
+        "masked_compact": event_ms(lambda i: hpc_compact(pool[i % 2], lengths), 20),
+        "general_scan": event_ms(lambda i: general_minimizers(*general_main[i % 2]), 20),
     }
     plain_ms = {
-        "fused_scan": time_ms(
+        "fused_scan": event_ms(
             lambda i: fused_scan_plain(
                 pool[i % 2], lengths, limit, *scan_args, TILE, cap), 3, 1),
-        "slot_compact": time_ms(
+        "slot_compact": event_ms(
             lambda i: slot_compact_counts_plain(
                 *k1_runs[i % 2][:3], k1_runs[i % 2][3], m_cap), 10),
-        "assemble": time_ms(
+        "assemble": event_ms(
             lambda i: assemble_masked_plain(min_hash, spec.k, 32, None, n_main, *pos_main),
             10),
-        "masked_compact": time_ms(lambda i: hpc_compress_packed(pool[i % 2], lengths), 3, 1),
-        "general_scan": time_ms(
+        "masked_compact": event_ms(lambda i: hpc_compress_packed(pool[i % 2], lengths), 3, 1),
+        "general_scan": event_ms(
             lambda i: general_minimizers_plain(*general_main[i % 2]), 3, 1),
     }
     for name in ms:
         log(f"{name} on {card}: kernel {ms[name]:.4f} ms (CUDA events), plain "
             f"{plain_ms[name]:.4f} ms")
-    # K2's and K3's new times beside the same measurement before their
-    # redesign: (what, ms now, key of K2_K3_BEFORE_MS).
-    k23_seen = [("slot_compact main, events", ms["slot_compact"], "slot_compact main, events")]
-
-    # K1 per instance beside its one-block-per-read time and the bound; the
-    # bound of every kernel at the shape its `ms` was timed.
-    k1_seen = []
-
+    # K1 per instance beside its bound; the bound of every kernel at the
+    # shape its `ms` was timed.
     def k1_line(what, t, bnd):
-        k1_seen.append((what, t, bnd))
-        log(f"K1 {what} on {card}: {t:.4f} ms (one block per read: "
-            f"{K1_ONE_BLOCK_MS[what]} ms; bound "
-            f"{bnd[0]:.4f} ms by {bnd[1]})")
+        log(f"K1 {what} on {card}: {t:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]})")
 
-    bounds = {"fused_scan": k1_bound(codes, k1[3], spec.l, 32, False)}
+    bounds = {"fused_scan": k1_bound(codes, k1[3], 32)}
     k1_line("u32 hpcsimd l=31", ms["fused_scan"], bounds["fused_scan"])
     for (w, v), (args, got) in width_scans.items():
         mode = "hpcsimd" if args[6] else "regular"
         k1_line(f"width {w} {v} {mode} l=31",
-                time_ms(lambda i, a=args: fused_minimizer_scan(*a), 20),
-                k1_bound(args[0], got[3], 31, w, False))
+                event_ms(lambda i, a=args: fused_minimizer_scan(*a), 20),
+                k1_bound(args[0], got[3], w))
 
     def k2_bound(kept_t, m, fill):
-        """K2's least work: each kept survivor's 3 columns read, the kept and
-        raw counts read, and written the m slots of 3 columns (with the fill;
-        else the survivors) and n_min, n_raw."""
+        """K2's bound (``k2_bound_s``); without the fill, which that does not
+        count, the survivors are written in place of the m slots."""
         surv = int(kept_t.sum())
         rows, nt_ = kept_t.shape
-        written = rows * m if fill else surv
-        return bound(surv * 12 + rows * nt_ * 8 + written * 12 + rows * 8, 3 * surv)
+        if fill:
+            return bound(k2_bound_s, rows, nt_, surv, m)
+        return bound(bound_s, surv * 12 + rows * nt_ * 8 + surv * 12 + rows * 8, 3 * surv)
 
     bounds["slot_compact"] = k2_bound(kept, m_cap, True)
-    # K3 masked: the valid rows' words, and the valid windows' starts and
-    # ends, read; 17 bytes a window and n_kminmers written; a mix (12
-    # operations) a word and a roll, min and compare (16) a valid window.
-    M = min_hash.shape[1]
-    nk = M - spec.k + 1
-    n_words = int(n_main.sum())
-    n_valid = int((n_main - (spec.k - 1)).clamp(min=0).sum())
-    bounds["assemble"] = bound(n_words * 4 + n_valid * 8 + B * nk * 17 + B * 8,
-                               12 * n_words + 16 * n_valid)
+    # K3 masked, on the stream's counts (``k3_bound_s``).
+    bounds["assemble"] = bound(k3_bound_s, B, n_main.tolist(), spec.k, min_hash.shape[1])
     # K4's least work: the mask (or xcodes) read once, each selected
     # element of each column read once, every output slot and the count
     # written once; a test and a rank (2 operations) an element.
     n_hpc = int(hpc_args[0].sum())
     k4_bounds = {
-        "(a) dense HPC": bound(B * L + n_hpc * 4 + B * L * 4 + B * 4, 2 * B * L),
+        "(a) dense HPC": bound(bound_s, B * L + n_hpc * 4 + B * L * 4 + B * 4, 2 * B * L),
         "(b) 3 columns, 1% mask": bound(
-            B * nwin + n_sel_b * 12 + B * min_args[2] * 12 + B * 4, 2 * B * nwin),
+            bound_s, B * nwin + n_sel_b * 12 + B * min_args[2] * 12 + B * 4, 2 * B * nwin),
         # the xcodes and lengths read, the packed column and count written
-        "HPC form": bound(B * L + B * 4 + B * L * 4 + B * 4, 3 * B * L),
+        "HPC form": bound(bound_s, B * L + B * 4 + B * L * 4 + B * 4, 3 * B * L),
     }
     bounds["masked_compact"] = k4_bounds["HPC form"]
     # (b)'s bound counts 4 bytes a selected element; the card reads a whole
@@ -1693,7 +1614,7 @@ def main():
         n_win = int(torch.where(
             live, (eff - l_ + 1 - int(gs.mode == "hpc")).clamp(0, L - l_ + 1), 0).sum())
         m_ = gs.capacity_for(L)
-        return bound(need * stream.element_size() + B * 8
+        return bound(bound_s, need * stream.element_size() + B * 8
                      + B * m_ * (16 if gs.hash_width == 64 else 12) + B * 8, 10 * n_win)
 
     bounds["general_scan"] = general_bound(general_spec)
@@ -1705,12 +1626,6 @@ def main():
     k2_keys = ("slot_compact_offsets", "slot_compact_copy")
     k3_keys = ("assemble_kernel",)
 
-    def kernel_name(e):
-        """A device event's kernel, without its namespaces, template and
-        arguments."""
-        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
-        return name.split("(")[0].split("<")[0].split("::")[-1].strip()
-
     def device_ms(fn, keys, reps=20):
         """(device ms, kernels, device ms by kernel) a call of fn, over the
         kernels whose names hold one of ``keys``, under the profiler after
@@ -1718,17 +1633,12 @@ def main():
         (CUDA-event ms, None, {}): the CUDA events time the launches too."""
         fn(0)
         torch.cuda.synchronize()
-        evs, _ = device_events(lambda: [fn(i) for i in range(reps)])
-        if not evs:
-            return time_ms(fn, reps), None, {}
-        evs = [e for e in evs if any(k in e.name for k in keys)]
-        check(evs, f"the profiler recorded no kernel named {keys}")
-        by_kernel = {}
-        for e in evs:
-            key = kernel_name(e)
-            by_kernel[key] = by_kernel.get(key, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / reps
-        return sum(by_kernel.values()), len(evs) / reps, by_kernel
+        p = profile(fn, reps, keys)
+        if p is None:
+            return event_ms(fn, reps), None, {}
+        check(p.events, f"the profiler recorded no kernel named {keys}")
+        by_kernel = {k: ms for k, (_, ms) in p.by_kernel.items()}
+        return sum(by_kernel.values()), p.events, by_kernel
 
     def timed_by(n_k, by_kernel=None) -> str:
         """How device_ms timed a call."""
@@ -1754,45 +1664,24 @@ def main():
         dev_ms[what] = device_ms(fn, keys)
         log(f"{what} on {card}: device {dev_ms[what][0]:.4f} ms a call "
             f"({timed_by(dev_ms[what][1])})")
-    k23_seen += [
-        ("slot_compact main, device", dev_ms["slot_compact main"][0],
-         "slot_compact main, device"),
-        ("assemble xorshift main, device, unmasked",
-         dev_ms["assemble xorshift main, unmasked"][0], "assemble xorshift main, device"),
-        ("assemble xorshift main, device, masked (the main path's form)",
-         dev_ms["assemble masked xorshift main"][0], "assemble xorshift main, device"),
-    ]
     # The kernels' line reports K2's and K3's device time: CUDA events
     # around their back-to-back launches time the host at this size.
     ms["slot_compact"] = dev_ms["slot_compact main"][0]
     ms["assemble"] = dev_ms["assemble masked xorshift main"][0]
 
-    def profile_steps(ps):
-        """10 steps of a path under the profiler: the busy time is the union
-        of the kernels' and copies' spans."""
-        dev_events, wall = device_events(
-            lambda: [kminmer_pipeline(pool[i % 2], lengths, ps) for i in range(10)])
-        if not dev_events:
-            return None
-        busy, _ = device_busy(dev_events)
-        per_kernel = {}
-        for e in dev_events:
-            key = kernel_name(e)
-            per_kernel[key] = per_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e4
-        n_kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev_events)
-        return busy * 100, wall * 100, n_kernels / 10, len(dev_events) / 10, per_kernel
-
+    # 10 steps of each path under the profiler: the busy time is the union
+    # of the kernels' and copies' spans.
     for path in ("main", "general"):
-        prof_steps = profile_steps(path_kernels[path][0])
-        if prof_steps is None:
+        ps = path_kernels[path][0]
+        p = profile(lambda i: kminmer_pipeline(pool[i % 2], lengths, ps), 10)
+        if p is None:
             log(f"{path} path under the profiler on {card}: {NOT_MEASURED}")
             continue
-        busy, wall, n_k, n_ev, per_kernel = prof_steps
-        log(f"{path} path under the profiler on {card}: device busy {busy:.4f} ms a step "
-            f"of {wall:.4f} ms wall (idle share {1 - busy / wall:.4f}); {n_k:.1f} device "
-            f"kernels a step ({n_ev:.1f} device events); device ms a step "
-            + ", ".join(f"{k} {v:.4f}" for k, v in
-                        sorted(per_kernel.items(), key=lambda kv: -kv[1])))
+        log(f"{path} path under the profiler on {card}: device busy {p.busy_ms:.4f} ms a step "
+            f"of {p.wall_ms:.4f} ms wall (idle share {p.idle_share:.4f}); {p.kernels:.1f} device "
+            f"kernels a step ({p.events:.1f} device events); device ms a step "
+            + ", ".join(f"{k} {ms:.4f}" for k, (_, ms) in
+                        sorted(p.by_kernel.items(), key=lambda kv: -kv[1][1])))
 
     # K4's two masked cases, its HPC form and the general scan: CUDA events
     # and device time under the profiler, beside the bound and the plain
@@ -1812,16 +1701,15 @@ def main():
                            general_bound(gs)))
     k4_seen = {}
     for what, kern, plain, bnd in k4_general:
-        t_ev = time_ms(kern, 20)
+        t_ev = event_ms(kern, 20)
         t_dev, n_k, by_kernel = device_ms(kern, ("kernel",))
-        t_plain = time_ms(plain, 3, 1)
+        t_plain = event_ms(plain, 3, 1)
         k4_seen[what] = t_dev
         log(f"{what} on {card}: device {t_dev:.4f} ms a call ({timed_by(n_k, by_kernel)}), "
             f"{t_ev:.4f} ms (CUDA events); bound {bnd[0]:.4f} ms by {bnd[1]} "
             f"({bnd[0] / t_dev:.3f} of the bound reached); plain {t_plain:.4f} ms")
     ms["masked_compact"] = k4_seen["masked_compact HPC form"]
     ms["general_scan"] = k4_seen["general_scan hpcsimd nthash2 l=301"]
-    k4_seen["general path step"] = general_step_ms
     # xcode: its least work is 2 bytes a base (each raw byte read, each
     # xcode written once) and 4 integer operations a base (the lookup, the
     # compare, the OR, the length select).  Device time under the profiler:
@@ -1829,11 +1717,11 @@ def main():
     for what in (f"[{B}, {L}] full rows", "[1, 2^25] long-read chunk, prev a real byte"):
         args = xcode_cases[what]
         n_x = args[0].numel()
-        bnd = bound(2 * n_x + 8 * args[0].shape[0] + 256, 4 * n_x)
+        bnd = bound(bound_s, 2 * n_x + 8 * args[0].shape[0] + 256, 4 * n_x)
         t_dev, n_k, _ = device_ms(lambda i, a=args: encode_xcodes_cuda(*a, "simd"),
                                   ("xcode_kernel",))
-        t_ev = time_ms(lambda i, a=args: encode_xcodes_cuda(*a, "simd"), 20)
-        t_plain = time_ms(lambda i, a=args: encode_xcodes_plain(*a, "simd"), 3, 1)
+        t_ev = event_ms(lambda i, a=args: encode_xcodes_cuda(*a, "simd"), 20)
+        t_plain = event_ms(lambda i, a=args: encode_xcodes_plain(*a, "simd"), 3, 1)
         log(f"xcode {what} on {card}: device {t_dev:.4f} ms a call ({timed_by(n_k)}), "
             f"{t_ev:.4f} ms (CUDA events); bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / t_dev:.3f} of the "
             f"bound reached); plain {t_plain:.4f} ms")
@@ -1855,16 +1743,9 @@ def main():
     for (w, v), (args, _) in width_scans.items():
         extra[f"fused_scan plain, width {w} {v}"] = (
             None, lambda i, a=args: fused_scan_plain(*a))
-    before = {"assemble xorshift u32, unmasked": "assemble xorshift main, events",
-              "assemble murmur u16": "assemble murmur u16, events",
-              "assemble identity u64": "assemble identity u64, events",
-              "slot_compact with hash_hi": "slot_compact with hash_hi, events"}
     for what, (kern, plain) in extra.items():
-        kern_ms = None if kern is None else time_ms(kern, 20)
-        kern_txt = "" if kern is None else f"kernel {kern_ms:.4f} ms, "
-        log(f"{what} on {card}: {kern_txt}plain {time_ms(plain, 3, 1):.4f} ms")
-        if what in before:
-            k23_seen.append((f"{what}, events", kern_ms, before[what]))
+        kern_txt = "" if kern is None else f"kernel {event_ms(kern, 20):.4f} ms, "
+        log(f"{what} on {card}: {kern_txt}plain {event_ms(plain, 3, 1):.4f} ms")
 
     # 7. K1 with a carry: chunk 2 of each read from the kernel's chunk-1 carry
     C = 1 << 22
@@ -1893,13 +1774,12 @@ def main():
             [valid_slots(t, got[3]) for t in flat(got[:3])] + [got[3], got[4]],
             flat(want[:3]) + [want[3], want[4]]))
         check(int(got[3][:, :, 1].sum()) > 0, f"K1 with carry {what} selected nothing")
-        with_carry = time_ms(lambda i: fused_minimizer_scan(
+        with_carry = event_ms(lambda i: fused_minimizer_scan(
             chunk2, clen, lim, *sargs, base0=base, carry0=carry, emit_carry=True), 10)
-        fresh = time_ms(lambda i: fused_minimizer_scan(chunk2, clen, lim, *sargs), 10)
+        fresh = event_ms(lambda i: fused_minimizer_scan(chunk2, clen, lim, *sargs), 10)
         log(f"fused_scan [4, {C}] {what} on {card}: with carry {with_carry:.4f} ms, "
             f"without {fresh:.4f} ms")
-        k1_line(f"carry {what}", with_carry,
-                k1_bound(chunk2, got[3], cs.l, cs.hash_width, True))
+        k1_line(f"carry {what}", with_carry, k1_carry_bound(chunk2, got[3], cs.l, cs.hash_width))
 
     # 8. K5 and K6 against their plain version, at the script's two shapes
     tile = prof.tile_inputs()
@@ -1935,7 +1815,7 @@ def main():
         ms[name], plain_ms[name] = big4[key], big4["plain_ms"]
         # the keep mask and 4 payloads read, 4 payloads written, f32 each
         cells = prof.BIG_R * 128
-        bounds[name] = bound(cells * 4 * (1 + 4 + 4), 4 * cells)
+        bounds[name] = bound(bound_s, cells * 4 * (1 + 4 + 4), 4 * cells)
 
     # 10. the long-read path, counters at 0 just before
     seq = long_read_codes()
@@ -2019,18 +1899,16 @@ def main():
             turns[way].append(time.perf_counter() - t0)
     for way in turns:
         with eager_step() if way == "eager" else contextlib.nullcontext():
-            prof_call = prof_long_read.profile_call(
-                lambda: kminmers_long(seq, chunk=1 << 25, device=dev, **lr))
+            p = profile(lambda i: kminmers_long(seq, chunk=1 << 25, device=dev, **lr))
         walls = ("the same records; warm walls "
                  + ", ".join(f"{w:.4f}" for w in turns[way]) + " s")
-        if prof_call is None:
-            log(f"long read {way} chunk step on {card}: {walls}; {prof_long_read.NOT_MEASURED}")
+        if p is None:
+            log(f"long read {way} chunk step on {card}: {walls}; {NOT_MEASURED}")
             continue
-        p_wall, busy, _, _, by_name = prof_call
-        dtod = by_name.get("Memcpy DtoD (Device -> Device)", (0, 0.0))
+        dtod = p.by_kernel.get("Memcpy DtoD (Device -> Device)", (0, 0.0))
         log(f"long read {way} chunk step on {card}: {walls}; profiled wall "
-            f"{p_wall:.4f} s, device busy {busy:.4f} s, idle share {1 - busy / p_wall:.4f}; "
-            f"device-to-device copies {dtod[1]:.4f} ms in {dtod[0]}")
+            f"{p.wall_ms / 1e3:.4f} s, device busy {p.busy_ms / 1e3:.4f} s, idle share "
+            f"{p.idle_share:.4f}; device-to-device copies {dtod[1]:.4f} ms in {dtod[0]:.0f}")
     # The same read as an ASCII str: staged as raw bytes, encoded by xcode
     # on the card once a chunk; the counters at 0 just before.
     text = prof_long_read.as_text(seq)
@@ -2071,7 +1949,7 @@ def main():
     base = first[3][:, :, 2].sum(dim=1, dtype=torch.int32)
     carry = first[4] - ((1 << 25) << 3)
     second = one[:, 1 << 25 :].contiguous()
-    k1_chunk = time_ms(lambda i: fused_minimizer_scan(
+    k1_chunk = event_ms(lambda i: fused_minimizer_scan(
         second, full, hpc_lim, *largs, base0=base, carry0=carry, emit_carry=True), 10)
     log(f"long read: K1 per 2^25-base chunk (with carry) on {card}: {k1_chunk:.4f} ms; "
         f"{-(-N_LONG // (1 << 25))} chunks = {k1_chunk * -(-N_LONG // (1 << 25)) / 1e3:.4f} s "
@@ -2090,7 +1968,7 @@ def main():
     want = fused_scan_plain(second, full, hpc_lim, *largs, 32, "nthash1", base, carry, True)
     record("fused_scan", "long read: chunk 2 of [1, 2^25] with carry", max_abs_err(
         [valid_slots(t, got[3]) for t in got[:3]] + [got[3], got[4]], [*want]))
-    k1_line("long-read chunk", k1_chunk, k1_bound(second, got[3], lspec.l, 32, True))
+    k1_line("long-read chunk", k1_chunk, k1_carry_bound(second, got[3], lspec.l, 32))
     del want
     lm_cap = lspec.capacity_for(1 << 25)
     kept_l = got[3][:, :, 0].contiguous()
@@ -2111,13 +1989,11 @@ def main():
                max_abs_err([*cols, *got_c[1:]], [*want_c[0], *want_c[1:]]))
         t_dev = device_ms(
             lambda i, f=fill: slot_compact_counts(*got[:3], got[3], lm_cap, f), k2_keys)[0]
-        t_ev = time_ms(lambda i, f=fill: slot_compact_counts(*got[:3], got[3], lm_cap, f), 20)
+        t_ev = event_ms(lambda i, f=fill: slot_compact_counts(*got[:3], got[3], lm_cap, f), 20)
         bnd = k2_bound(kept_l, lm_cap, fill)
         log(f"K2 on the long-read chunk [1, 2^25] ({kept_l.shape[1]} tiles, m = {lm_cap}) "
             f"{what} on {card}: device {t_dev:.4f} ms (profiler), {t_ev:.4f} ms (CUDA "
             f"events); bound {bnd[0]:.4f} ms by {bnd[1]}")
-        k23_seen.append((f"slot_compact long-read chunk, device, {what}", t_dev,
-                         "slot_compact long-read chunk, device"))
     del got_c, want_c, cols, valid_l
     mh = minimizer_stream_long(seq, lspec, chunk=1 << 25, device=dev)[2]
     check(mh.shape[0] - (lspec.k - 1) == n_rec, "long-read stream length")
@@ -2167,16 +2043,6 @@ def main():
         if name in launches:
             launches[name] += n
 
-    log("K1 against its one-block-per-read design, on " + card + ": " + "; ".join(
-        f"{what} {t:.4f} ms (one block per read {K1_ONE_BLOCK_MS[what]}, bound "
-        f"{bnd[0]:.4f} by {bnd[1]})"
-        for what, t, bnd in k1_seen))
-    log("K2 and K3 against their designs before the redesign, on " + card + ": "
-        + "; ".join(f"{what} {t:.4f} ms (before: {K2_K3_BEFORE_MS[key]})"
-                    for what, t, key in k23_seen))
-    log("K4 and the general path against their designs before, on " + card + ": "
-        + "; ".join(f"{what} {k4_seen[what]:.4f} ms (before: {t})"
-                    for what, t in K4_GENERAL_BEFORE_MS.items()))
     log(f"chip_smoke.py wall: {time.perf_counter() - t_script:.2f} s")
     print(json.dumps({"kernels": [
         {

@@ -32,7 +32,8 @@ checkout's package given those strs).
      time is the union of the intervals of its kernels and copies (copies
      on the staging stream overlap the compute stream, so a plain sum
      counts them twice), and the idle share is 1 - busy / wall; then the
-     device time of each kernel and copy, summed by name.
+     device time of each kernel and copy, summed by kernel name
+     (``common.profile``).
 
 Prints the card's name and power limit first.  Needs a GPU: without one it
 exits with an error and prints no result.
@@ -43,7 +44,6 @@ from __future__ import annotations
 import argparse
 import collections
 import importlib
-import importlib.util
 import sys
 import time
 from pathlib import Path
@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from .prof_mxu_compact import card
+from .common import NOT_MEASURED, card, load_package, profile
 
 N = 300_000_000
 CHUNK = 1 << 25
@@ -77,83 +77,11 @@ def as_text(codes: np.ndarray) -> str:
     return np.frombuffer(b"ACGT", dtype=np.uint8)[codes & 7].tobytes().decode("ascii")
 
 
-def device_busy(events) -> tuple:
-    """(union, sum) in seconds of the device events' time ranges."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    union, lo, hi = 0, None, None
-    for s, e in spans:
-        if hi is None or s > hi:
-            union += 0 if hi is None else hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    union += 0 if hi is None else hi - lo
-    return union / 1e6, sum(e - s for s, e in spans) / 1e6
-
-
-PROFILE_TRIES = 3
-
-
-def device_events(fn, tries: int = PROFILE_TRIES) -> tuple:
-    """fn() under torch.profiler, then a device sync -> (the device events,
-    the host-clock seconds of the traced call).  Now and then a session
-    late in a long process records no device event at all (CUPTI hands
-    none over; seen on an H100); such a session is run again in a new one,
-    up to ``tries`` sessions.  After those the events are [] and the caller
-    reports the device time as not measured, or times by CUDA events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for session in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
-            return events, wall
-        print(f"profiler session {session} of {tries} recorded no device event",
-              file=sys.stderr, flush=True)
-    return [], wall
-
-
-NOT_MEASURED = (f"device time not measured (the profiler recorded no device event in "
-                f"{PROFILE_TRIES} sessions)")
-
-
-def load_package(root: Path, name: str):
-    """``rust_seq2kminmers_torch`` of the checkout at ``root``, imported as
-    ``name`` (its modules import each other relatively)."""
-    pkg_dir = root / "rust_seq2kminmers_torch"
-    spec = importlib.util.spec_from_file_location(
-        name, pkg_dir / "__init__.py", submodule_search_locations=[str(pkg_dir)])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[name] = module
-    spec.loader.exec_module(module)
-    return module
-
-
 def same_records(a, b) -> bool:
     return len(a) == len(b) and all(
         x.keys() == y.keys() and all(
             x[c].dtype == y[c].dtype and np.array_equal(x[c], y[c]) for c in x)
         for x, y in zip(a, b))
-
-
-def profile_call(fn):
-    """fn() once under torch.profiler -> (wall s, device busy s, summed s,
-    events, {name: (count, ms)}), or None where no session recorded a
-    device event."""
-    events, wall = device_events(fn)
-    if not events:
-        return None
-    union, summed = device_busy(events)
-    by_name = {}
-    for e in events:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + (e.time_range.end - e.time_range.start) / 1e3)
-    return wall, union, summed, len(events), by_name
 
 
 def graph_memory(lr, B: int, dev) -> tuple:
@@ -274,16 +202,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.4f} s", flush=True)
 
     for label, call in calls.items():
-        prof = profile_call(call)
+        prof = profile(lambda i: call())
         if prof is None:
             print(f"{label}: {NOT_MEASURED}")
             continue
-        wall, union, summed, n_ev, by_name = prof
-        print(f"{label}: profiled wall {wall:.4f} s; device busy {union:.4f} s (union of "
-              f"{n_ev} kernels and copies; summed {summed:.4f} s); idle share "
-              f"{1 - union / wall:.4f}")
-        for key, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-            print(f"  {ms:10.3f} ms  x{n:<4d} {key[:90]}")
+        print(f"{label}: profiled wall {prof.wall_ms / 1e3:.4f} s; device busy "
+              f"{prof.busy_ms / 1e3:.4f} s (union of {prof.events:.0f} kernels and copies; "
+              f"summed {prof.summed_ms / 1e3:.4f} s); idle share {prof.idle_share:.4f}")
+        for key, (n, ms) in sorted(prof.by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
+            print(f"  {ms:10.3f} ms  x{n:<4.0f} {key[:90]}")
     return 0
 
 

@@ -3,18 +3,18 @@
 main path (hpcsimd, l=31, k=5, d=0.01, u32) or with ``--path general`` on
 the general path (hpcsimd, nthash2, l=301, k=5, d=0.01).
 
-    python rust_seq2kminmers_torch/scripts/prof_main_step.py [--root DIR] [--path general]
+    python -m rust_seq2kminmers_torch.scripts.prof_main_step [--root DIR] [--path general]
 
-``--root`` imports ``rust_seq2kminmers_torch`` from another checkout (for
-example an earlier commit unpacked by ``git archive``), so that two
-versions are compared on one card in one call; it uses only functions that
-both have.  Prints the card's name and power limit, then:
+``--root`` measures the ``rust_seq2kminmers_torch`` of another checkout
+(for example an earlier commit unpacked by ``git archive``, imported as
+``s2k_root``), so that two versions are compared on one card in one call;
+it uses only functions that both have.  Prints the card's name and power limit, then:
 
   1. the step time by CUDA events over 20 back-to-back steps alternating
      two batches, three times;
   2. 10 steps under ``torch.profiler``: device busy time a step (the union
      of the device spans), idle share, device kernels a step, and device
-     time a step by kernel;
+     time a step by kernel name (``common.profile``);
   3. the stages apart, each 10 times under the profiler: the minimizer
      stream (``_fused_minimizers``: K1, K2 and their glue; on the general
      path ``_general_minimizers``) and the k-min-mer fields (``_assemble``:
@@ -30,43 +30,59 @@ exits with an error and prints no result.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
+from .common import NOT_MEASURED, card, event_ms, load_package, profile
+
 K1_KEYS = ("tile_summary", "tile_carries", "scan_kernel")
 
 
-def _kernels(events):
-    return [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+def host_ms(fn, reps=20):
+    """Host-clock ms to issue a call of fn(i), before the closing sync."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(i)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
+def kernels(prof, skip=()) -> tuple:
+    """(device kernels, device ms) a call in ``prof``, without the kernels
+    whose names hold one of ``skip``."""
+    rows = [v for k, v in prof.by_kernel.items()
+            if not k.startswith(("Memcpy", "Memset")) and not any(s in k for s in skip)]
+    return sum(n for n, _ in rows), sum(ms for _, ms in rows)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--root", default=None)
     ap.add_argument("--path", choices=("main", "general"), default="main")
     args = ap.parse_args()
-    root = Path(args.root).resolve()
-    sys.path.insert(0, str(root))
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    from rust_seq2kminmers_torch.constants import with_keep_bits
-    from rust_seq2kminmers_torch.ops import pipeline
-    from rust_seq2kminmers_torch.scripts.prof_long_read import device_busy
+    if args.root is None:
+        pkg = importlib.import_module(__package__.rsplit(".", 1)[0])
+    else:
+        pkg = load_package(Path(args.root).resolve(), "s2k_root")
+    pipeline = importlib.import_module(pkg.__name__ + ".ops.pipeline")
+    with_keep_bits = importlib.import_module(pkg.__name__ + ".constants").with_keep_bits
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"{card}; package from {root}; {args.path} path", flush=True)
+    name = card()
+    print(f"{name}; package from {Path(pkg.__file__).parents[1]}; {args.path} path", flush=True)
     dev = torch.device("cuda", 0)
     B, L = 32, 1 << 20
     if args.path == "main":
@@ -86,64 +102,25 @@ def main() -> int:
     def step(i):
         pipeline.kminmer_pipeline(pool[i % 2], lengths, spec)
 
-    for i in range(3):
-        step(i)
-    torch.cuda.synchronize()
-    event_ms = []
-    for _ in range(3):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for i in range(20):
-            step(i)
-        e1.record()
-        e1.synchronize()
-        event_ms.append(e0.elapsed_time(e1) / 20)
-    print("step (CUDA events, 20 steps) ms: " + ", ".join(f"{t:.4f}" for t in event_ms))
+    step_ms = [event_ms(step, 20, 3) for _ in range(3)]
+    print("step (CUDA events, 20 steps) ms: " + ", ".join(f"{t:.4f}" for t in step_ms))
 
-    def host_ms(fn, reps=20):
-        fn(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(reps):
-            fn(i)
-        t = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return t / reps * 1e3
-
-    def profiled(fn, reps=10):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            t0 = time.perf_counter()
-            for i in range(reps):
-                fn(i)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        evs = [e for e in p.events() if e.device_type == DeviceType.CUDA]
-        if not evs:
-            raise RuntimeError("the profiler recorded no device event")
-        return evs, wall
-
-    evs, wall = profiled(step)
-    busy, _ = device_busy(evs)
-    by_name = {}
-    for e in evs:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + (e.time_range.end - e.time_range.start) / 1e4)
-    res = {
-        "card": card,
-        "step_event_ms": event_ms,
-        "busy_ms": busy * 100,
-        "profiled_wall_ms": wall * 100,
-        "idle_share": 1 - busy / wall,
-        "kernels_a_step": len(_kernels(evs)) / 10,
-        "device_events_a_step": len(evs) / 10,
-        "host_ms_a_step": host_ms(step),
-    }
-    print(f"10 steps under the profiler: device busy {res['busy_ms']:.4f} ms a step of "
-          f"{res['profiled_wall_ms']:.4f} ms wall (idle share {res['idle_share']:.4f}); "
-          f"{res['kernels_a_step']:.1f} device kernels a step; host enqueue "
-          f"{res['host_ms_a_step']:.4f} ms a step")
-    for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
-        print(f"  {ms:8.4f} ms a step  x{n / 10:<4.1f} {name[:100]}")
+    res = {"card": name, "step_event_ms": step_ms}
+    prof = profile(step, 10)
+    res["host_ms_a_step"] = host_ms(step)
+    if prof is None:
+        print(f"10 steps under the profiler: {NOT_MEASURED}; host enqueue "
+              f"{res['host_ms_a_step']:.4f} ms a step")
+    else:
+        res.update(busy_ms=prof.busy_ms, profiled_wall_ms=prof.wall_ms,
+                   idle_share=prof.idle_share, kernels_a_step=prof.kernels,
+                   device_events_a_step=prof.events)
+        print(f"10 steps under the profiler: device busy {prof.busy_ms:.4f} ms a step of "
+              f"{prof.wall_ms:.4f} ms wall (idle share {prof.idle_share:.4f}); "
+              f"{prof.kernels:.1f} device kernels a step; host enqueue "
+              f"{res['host_ms_a_step']:.4f} ms a step")
+        for key, (n, ms) in sorted(prof.by_kernel.items(), key=lambda kv: -kv[1][1]):
+            print(f"  {ms:8.4f} ms a step  x{n:<4.1f} {key[:100]}")
 
     stream = minimizers(pool[0], lengths, spec, pipeline._KERNELS, m_cap)
     stages = {
@@ -155,18 +132,15 @@ def main() -> int:
     res["stages"] = {}
     for what, fn in stages.items():
         fn(0)
-        evs, _ = profiled(fn)
-        ks = _kernels(evs)
-        not_k1 = [e for e in ks if not any(k in e.name for k in K1_KEYS)]
-        row = {
-            "kernels_a_call": len(ks) / 10,
-            "device_ms_a_call": sum(e.time_range.end - e.time_range.start for e in ks) / 1e4,
-            "kernels_a_call_without_k1": len(not_k1) / 10,
-            "device_ms_a_call_without_k1":
-                sum(e.time_range.end - e.time_range.start for e in not_k1) / 1e4,
-            "host_ms_a_call": host_ms(fn),
-        }
+        prof = profile(fn, 10)
+        row = {"host_ms_a_call": host_ms(fn)}
         res["stages"][what] = row
+        if prof is None:
+            print(f"{what}: {NOT_MEASURED}; host enqueue {row['host_ms_a_call']:.4f} ms a call")
+            continue
+        row["kernels_a_call"], row["device_ms_a_call"] = kernels(prof)
+        row["kernels_a_call_without_k1"], row["device_ms_a_call_without_k1"] = kernels(
+            prof, K1_KEYS)
         print(f"{what}: {row['kernels_a_call']:.1f} device kernels, "
               f"{row['device_ms_a_call']:.4f} ms device a call; without K1's kernels "
               f"{row['kernels_a_call_without_k1']:.1f} kernels, "

@@ -27,7 +27,6 @@ Needs a GPU: without one it exits with an error and prints no result.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 import numpy as np
@@ -39,6 +38,7 @@ from ..ops.cuda.inrow_compact import (
     inrow_compact_mma,
     inrow_compact_plain,
 )
+from .common import card, event_ms
 
 R = 512  # the reference's tile of rows
 BIG_R = 262144  # 32 Mi elements
@@ -88,21 +88,6 @@ def bits_equal(got, want) -> bool:
                for g, w in zip(got, want))
 
 
-def time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean ms per call over ``reps`` calls, CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
 def run(device) -> list:
     """Checks and times both kernels -> one dict per (rows, payloads)."""
     results = []
@@ -132,17 +117,9 @@ def run(device) -> list:
 def _timed(xs, keep, reps):
     row = {"rows": keep.shape[0], "payloads": len(xs)}
     for name, fn in KERNELS.items():
-        row[f"{name}_ms"] = time_ms(lambda: fn(xs, keep), reps)
-    row["plain_ms"] = time_ms(lambda: inrow_compact_plain(xs, keep), max(reps // 4, 3))
+        row[f"{name}_ms"] = event_ms(lambda i: fn(xs, keep), reps, 3)
+    row["plain_ms"] = event_ms(lambda i: inrow_compact_plain(xs, keep), max(reps // 4, 3), 3)
     return row
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def main() -> int:

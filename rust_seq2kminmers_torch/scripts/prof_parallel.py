@@ -46,7 +46,6 @@ with fewer it exits with an error and prints no result.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import tempfile
 import time
@@ -56,8 +55,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .prof_long_read import device_busy, random_read
-from .prof_stream import kernel_name
+from .common import NOT_MEASURED, cards, event_ms, profile, timed
+from .prof_long_read import random_read
 
 B, L = 32, 1 << 20
 N_LONG = 300_000_000
@@ -66,19 +65,6 @@ LONG = dict(l=31, k=5, density=0.01, mode="hpcsimd")
 # Item 2: tiles of 8 survivors and M = 64 overflow at d = 0.05.
 RESCUE = dict(l=11, k=3, density=0.05, mode="hpcsimd", max_minimizers=64, tile_cap=8)
 FILE_ROWS_PER_RANK = 128
-
-
-def _time_ms(fn, reps=20, warmup=2):
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    e0.record()
-    for i in range(reps):
-        fn(i)
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def _host_ms(fn, reps=20):
@@ -102,29 +88,15 @@ def split_ms(fn, module, names, reps=10) -> dict:
     spans = {n: [] for n in names}
     steps = []
 
-    def timed(name):
-        def run(*args, **kwargs):
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            out = real[name](*args, **kwargs)
-            e1.record()
-            spans[name].append((e0, e1))
-            return out
-        return run
-
     fn(0)
     torch.cuda.synchronize()
     for n in names:
-        setattr(module, n, timed(n))
+        setattr(module, n, timed(real[n], spans[n]))
     try:
         for i in range(reps):
             dist.barrier()
             torch.cuda.synchronize()
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            fn(i)
-            e1.record()
-            steps.append((e0, e1))
+            timed(fn, steps)(i)
         torch.cuda.synchronize()
     finally:
         for n, f in real.items():
@@ -135,33 +107,20 @@ def split_ms(fn, module, names, reps=10) -> dict:
     return out
 
 
-def profiled(fn, reps=10) -> dict:
+def profiled(fn, reps=10):
     """reps calls of fn(i) under the profiler -> device busy ms a call, the
-    NCCL kernels' device ms a call, device kernels a call, and the wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    NCCL kernels' device ms a call, device kernels a call, and the wall;
+    None where the one session recorded no device event."""
     fn(0)
     torch.cuda.synchronize()
     dist.barrier()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    evs = [e for e in p.events() if e.device_type == DeviceType.CUDA]
-    if not evs:
-        raise RuntimeError("the profiler recorded no device event")
-    busy, _ = device_busy(evs)
-    by = {}
-    for e in evs:
-        k = kernel_name(e.name)
-        by[k] = by.get(k, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
-    return {"busy_ms": busy / reps * 1e3, "wall_ms": wall / reps * 1e3,
+    prof = profile(fn, reps, tries=1)
+    if prof is None:
+        return None
+    by = {k: ms for k, (_, ms) in prof.by_kernel.items()}
+    return {"busy_ms": prof.busy_ms, "wall_ms": prof.wall_ms,
             "nccl_ms": sum(v for k, v in by.items() if k.startswith("ncclDevKernel")),
-            "kernels": sum(not e.name.startswith(("Memcpy", "Memset")) for e in evs) / reps,
-            "top": sorted(by.items(), key=lambda kv: -kv[1])[:8]}
+            "kernels": prof.kernels, "top": sorted(by.items(), key=lambda kv: -kv[1])[:8]}
 
 
 def _equal(got, want) -> bool:
@@ -200,7 +159,7 @@ def _dp(device) -> dict:
     eager = lambda c, n: dp_step(c, n, spec, group)  # noqa: E731
     # The step as gloo runs it: the pipeline's graph, then the collectives.
     split = lambda c, n: driver._offsets(graph_step(c, n), group)  # noqa: E731
-    times = [(what, _time_ms(lambda i, f=f: f(pool[i % 2], lengths)))
+    times = [(what, event_ms(lambda i, f=f: f(pool[i % 2], lengths), 20))
              for what, f in (("make_pipeline", graph_step), ("DP step", step),
                              ("graph + eager collectives", split), ("dp_step", eager),
                              ("DP step", step), ("graph + eager collectives", split),
@@ -310,9 +269,9 @@ def _seq(device) -> dict:
 def _file(device, path) -> dict:
     """Item 4 -> whether this rank's chunks equal its slice of the
     streaming runner's stream, and its wall."""
+    from ..io.stream import StreamingRunner
     from ..ops.pipeline import PipelineSpec
     from ..parallel.multihost import global_data_mesh, run_file_distributed
-    from .prof_stream import run
 
     spec = PipelineSpec(l=31, k=5, density=0.01)
     dist.barrier()
@@ -320,7 +279,9 @@ def _file(device, path) -> dict:
     chunks = run_file_distributed(path, spec, global_data_mesh(device), FILE_ROWS_PER_RANK,
                                   device=device)
     wall = time.perf_counter() - t0
-    want = run(path, spec, device)[1]
+    with StreamingRunner(path, spec, device=device) as r:
+        r.run()
+        want = r.collect()
     same = bool(chunks)
     for c in chunks:
         n = len(c.records["hash"])
@@ -342,6 +303,8 @@ def _parts(p) -> str:
 
 
 def _prof(p) -> str:
+    if p is None:
+        return NOT_MEASURED
     return (f"busy {p['busy_ms']:.4f} ms of a {p['wall_ms']:.4f} ms wall, NCCL kernels "
             f"{p['nccl_ms']:.4f} ms, {p['kernels']:.1f} device kernels; top: "
             + ", ".join(f"{k} {v:.4f}" for k, v in p["top"]))
@@ -404,17 +367,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--worlds", type=int, nargs="*", default=None)
     args = ap.parse_args(argv)
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    worlds = args.worlds or sorted({2, cards})
-    if cards < 2 or max(worlds) > cards:
-        print(f"needs {max(worlds + [2])} GPUs, found {cards}", file=sys.stderr)
+    gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    worlds = args.worlds or sorted({2, gpus})
+    if gpus < 2 or max(worlds) > gpus:
+        print(f"needs {max(worlds + [2])} GPUs, found {gpus}", file=sys.stderr)
         return 1
     from .prof_stream import make_reads, write_fasta
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip(), flush=True)
+    print("\n".join(cards()), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "reads.fa"
         bases = write_fasta(path, make_reads())

@@ -37,8 +37,7 @@ import torch
 
 from ..io.stream import StreamingRunner
 from ..ops.pipeline import PipelineSpec
-from .prof_long_read import NOT_MEASURED, device_busy, device_events
-from .prof_mxu_compact import card
+from .common import NOT_MEASURED, card, profile
 
 SEED = 11
 HIFI = (24_000, 10_000, 30_000)  # count, shortest, longest
@@ -126,25 +125,13 @@ def run(path, spec, device, profiled=False):
         with StreamingRunner(path, spec, device=device) as r:
             done[:] = [r.run(), r.collect()]
 
-    events, _ = device_events(traced)
+    prof = profile(lambda i: traced())
     stats, recs = done
-    if not events:
+    if prof is None:
         return stats, recs, ()
-    busy = device_busy(events)[0]
-    by_kernel = {}
-    for e in events:
-        key = kernel_name(e.name)
-        by_kernel[key] = by_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    return stats, recs, (stats.wall_s, busy, 1 - busy / stats.wall_s, by_kernel)
-
-
-def kernel_name(name: str) -> str:
-    """A device event's name without namespaces, template arguments and
-    parameters (copies keep theirs, e.g. "Memcpy HtoD (Pinned -> Device)")."""
-    if name.startswith(("Memcpy", "Memset")):
-        return name
-    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
-    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+    busy = prof.busy_ms / 1e3
+    return stats, recs, (stats.wall_s, busy, 1 - busy / stats.wall_s,
+                         {k: ms for k, (_, ms) in prof.by_kernel.items()})
 
 
 def describe(stats) -> str:

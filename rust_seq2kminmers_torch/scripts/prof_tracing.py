@@ -31,7 +31,7 @@ import torch
 from .. import tracing
 from ..api import kminmers_batch
 from ..ops.pipeline import PipelineSpec
-from .prof_mxu_compact import card
+from .common import card
 
 B, L = 32, 1 << 20
 SPEC = PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd")

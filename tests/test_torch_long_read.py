@@ -389,7 +389,7 @@ def test_prof_long_read_device_busy():
     """The long-read profiler counts overlapping device spans once."""
     from types import SimpleNamespace
 
-    from rust_seq2kminmers_torch.scripts.prof_long_read import device_busy
+    from rust_seq2kminmers_torch.scripts.common import device_busy
 
     def ev(s, e):
         return SimpleNamespace(time_range=SimpleNamespace(start=s, end=e))
