@@ -120,26 +120,27 @@ def kminmers_batch(codes, lengths, spec: PipelineSpec, max_retries: int = 8):
     A read whose raw selected count exceeds its kept count lost survivors
     to a tile's or the stream's capacity (on the general path, only to the
     stream's); the batch then reruns on ``rescue_spec``.  The overflow
-    check's fetch is the host's, outside the graph.
+    check is the host's, outside the graph: both counts come back in one
+    copy, the attempt's only wait for the card, and are compared there.
 
     Returns a KminmerBatch whose n_minimizers == n_minimizers_raw.
 
     Spans (``tracing.py``): ``batch.call`` the call; under it, an attempt
-    a ``batch.step`` (the compiled step), ``batch.wait`` (the first fetch,
-    which waits for the card) and ``batch.check``, and ``batch.rescue``
-    once a rerun."""
+    a ``batch.step`` (the compiled step), ``batch.wait`` (the one fetch of
+    both counts, which waits for the card) and ``batch.check`` (the
+    comparison on the host's copy), and ``batch.rescue`` once a rerun."""
     with tracing.span("batch.call"):
         for _ in range(max_retries):
             with tracing.span("batch.step"):
                 out = _cached_pipeline(spec)(codes, lengths)
             with tracing.span("batch.wait"):
-                n_raw = out.n_minimizers_raw.cpu()
+                counts = torch.stack((out.n_minimizers, out.n_minimizers_raw)).cpu().numpy()
             with tracing.span("batch.check"):
-                done = bool((out.n_minimizers.cpu() >= n_raw).all())
+                done = bool((counts[0] >= counts[1]).all())
             if done:
                 return out
             with tracing.span("batch.rescue"):
-                spec = rescue_spec(spec, int(n_raw.max()))
+                spec = rescue_spec(spec, int(counts[1].max()))
         raise RuntimeError(
             f"minimizer overflow not resolved after {max_retries} retries"
         )

@@ -11,7 +11,9 @@ imports no jax, so it also runs without the repo's conftest:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_tracing.py
 """
 
+import dataclasses
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -20,7 +22,7 @@ import torch
 from rust_seq2kminmers_torch import api, kminmers_long, tracing
 from rust_seq2kminmers_torch.api import kminmers_batch
 from rust_seq2kminmers_torch.constants import with_keep_bits
-from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec
+from rust_seq2kminmers_torch.ops.pipeline import PipelineSpec, kminmer_pipeline_plain
 
 SPEC = PipelineSpec(l=31, k=5, density=0.01, mode="hpcsimd")
 
@@ -177,6 +179,95 @@ def test_a_forced_overflow_gives_a_rescue_span_a_rerun(monkeypatch):
     assert {s.call for s in got} == {r["batch.call"][0].id}
 
 
+TIGHT = PipelineSpec(l=31, k=5, density=0.5, mode="hpcsimd", max_minimizers=128)
+
+
+@pytest.mark.parametrize("spec", [SPEC, TIGHT], ids=["exact", "rescued"])
+def test_an_attempt_fetches_the_counts_once_inside_its_wait(monkeypatch, spec):
+    """Each attempt brings its counts to the host in one ``.cpu()``, inside
+    its ``batch.wait``; ``batch.check`` fetches nothing."""
+    attempts, real = [], api._cached_pipeline
+    monkeypatch.setattr(api, "_cached_pipeline", lambda s: attempts.append(s) or real(s))
+    codes, lengths = _batch()
+    fetched, real_cpu = [], torch.Tensor.cpu
+
+    def cpu(self, *args, **kwargs):
+        fetched.append(time.time_ns())
+        return real_cpu(self, *args, **kwargs)
+
+    with tracing.recording() as got, monkeypatch.context() as patched:
+        patched.setattr(torch.Tensor, "cpu", cpu)
+        kminmers_batch(codes, lengths, spec)
+    waits = _by_name(got)["batch.wait"]
+    assert (len(attempts) > 1) == (spec is TIGHT)
+    assert len(fetched) == len(waits) == len(attempts)
+    for t, w in zip(fetched, waits):
+        assert w.start_ns <= t <= w.end_ns
+
+
+def _fields(out):
+    """Each row's valid minimizers and k-min-mers, as lists."""
+    rows = []
+    for b in range(out.n_minimizers.shape[0]):
+        nm, nk = int(out.n_minimizers[b]), int(out.n_kminmers[b])
+        rows.append([getattr(out, f)[b, :nm].tolist()
+                     for f in ("min_hash", "min_hash_hi", "min_start", "min_end")]
+                    + [getattr(out, f)[b, :nk].tolist()
+                       for f in ("hash_hi", "hash_lo", "start", "end", "rev")])
+    return rows
+
+
+def _one_over(attempt, out):
+    """Row 1's raw count one past its kept count, on the first attempt."""
+    if attempt:
+        return out
+    raw = out.n_minimizers.clone()
+    raw[1] += 1
+    return out._replace(n_minimizers_raw=raw)
+
+
+@pytest.mark.parametrize("spec, tamper, reruns", [
+    (SPEC, None, 0),
+    (SPEC, _one_over, 1),
+    (TIGHT, None, 1),
+    (SPEC, lambda attempt, out: out._replace(n_minimizers_raw=out.n_minimizers + 1), None),
+], ids=["exact", "one_over", "m_overflow", "exhausted"])
+def test_the_verdict_is_taken_from_the_fetched_counts(monkeypatch, spec, tamper, reruns):
+    """Whether an attempt reruns, and the rescue's spec, follow the counts
+    the host fetched (``tamper`` edits them before ``kminmers_batch`` sees
+    them); the answer is ``kminmer_pipeline_plain``'s on a lossless spec,
+    and counts that never agree raise after ``max_retries``."""
+    specs, seen, real = [], [], api._cached_pipeline
+
+    def pipeline(s):
+        def step(codes, lengths):
+            specs.append(s)
+            out = real(s)(codes, lengths)
+            out = tamper(len(specs) - 1, out) if tamper else out
+            seen.append(out.n_minimizers_raw)
+            return out
+        return step
+
+    monkeypatch.setattr(api, "_cached_pipeline", pipeline)
+    codes, lengths = _batch()
+    if reruns is None:
+        with pytest.raises(RuntimeError, match="after 3 retries"):
+            kminmers_batch(codes, lengths, spec, max_retries=3)
+        assert len(specs) == 3
+        return
+    out = kminmers_batch(codes, lengths, spec)
+    assert len(specs) == reruns + 1
+    for before, after, raw in zip(specs, specs[1:], seen):
+        assert after == api.rescue_spec(before, int(raw.max()))
+        assert after.tile_cap == 0 and after.max_minimizers == api._round_cap(int(raw.max()))
+    if spec.max_minimizers:  # the first attempt overflowed M itself
+        assert int(seen[0].max()) > spec.max_minimizers
+    lossless = dataclasses.replace(spec, tile_cap=0, max_minimizers=codes.shape[1])
+    want = kminmer_pipeline_plain(codes, lengths, lossless)
+    assert torch.equal(want.n_minimizers, want.n_minimizers_raw)
+    assert _fields(out) == _fields(want)
+
+
 def test_the_long_read_records_its_spans_and_its_producers():
     rng = np.random.default_rng(11)
     seq = "".join(rng.choice(list("ACGT"), 20_000))
@@ -204,7 +295,8 @@ def test_spans_fall_on_the_device_traces_clock(cuda):
     """Under a profiler session with CUDA activity only, as the benchmark
     traces its window: the calls record their spans, every ``step.replay``
     holds exactly one ``cudaGraphLaunch`` of the session, and every
-    ``batch.wait`` a device-to-host ``cudaMemcpyAsync``."""
+    ``batch.call`` exactly one device-to-host ``cudaMemcpyAsync``, inside
+    its ``batch.wait`` (none inside ``batch.check``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,7 +328,13 @@ def test_spans_fall_on_the_device_traces_clock(cuda):
             f"step.replay [{s.start_ns}, {s.end_ns}] holds {len(inside)} launches; the "
             f"nearest starts {nearest[0] - s.start_ns} ns after it and ends "
             f"{nearest[1] - s.end_ns} ns after it")
-    for s in r["batch.wait"]:
-        copies = [device.get(h[3], "") for h in host
-                  if h[2] == "cudaMemcpyAsync" and s.start_ns <= h[0] and h[1] <= s.end_ns]
-        assert any("DtoH" in name for name in copies), (copies, sorted(set(device.values())))
+    dtoh = [h for h in host if h[2] == "cudaMemcpyAsync" and "DtoH" in device.get(h[3], "")]
+
+    def within(s):
+        return [h for h in dtoh if s.start_ns <= h[0] and h[1] <= s.end_ns]
+
+    for c in r["batch.call"]:
+        (wait,) = [s for s in r["batch.wait"] if s.call == c.id]
+        (check,) = [s for s in r["batch.check"] if s.call == c.id]
+        assert len(within(c)) == 1, (within(c), sorted(set(device.values())))
+        assert within(wait) == within(c) and not within(check)
