@@ -1363,3 +1363,32 @@ def test_kminmers_batch_hpc_u64_equals_the_plain_reference(cuda):
         assert torch.equal(out.start[r, :n].to(torch.int64), w["start"]), r
         assert torch.equal(out.end[r, :n].to(torch.int64), w["end"]), r
         assert torch.equal(out.rev[r, :n].to(torch.bool), w["rev"]), r
+
+
+def test_kminmers_batch_ragged_regular_reads_equal_the_plain_reference(cuda):
+    """``kminmers_batch`` at the spec of the benchmark's CLI configuration
+    (regular, l=31, k=5, d=0.01, u32 minimizer hashes) on one [1024, 16384]
+    batch of the reads cell's traffic (lengths in (8192, 16384], XCODE_PAD
+    past each) equals the benchmark's plain PyTorch reference on every
+    row at its own length, record for record."""
+    from benchmark.drivers import resident_reads
+    from benchmark.reference import kminmers_torch as reference
+
+    traffic = json.loads((Path(__file__).parents[1] / "benchmark" / "traffic" /
+                          "reads.json").read_text())
+    traffic["buckets"] = [{"pad": 1 << 14, "batches": 1}]
+    codes, lengths = resident_reads.draw_reads(2**33 + 23, traffic, cuda, XCODE_PAD)[0]
+    assert codes.shape == (1024, 1 << 14) and int(lengths.min()) < int(lengths.max())
+    spec = PipelineSpec(l=31, k=5, density=0.01, mode="regular")
+    out = kminmers_batch(codes, lengths, spec)
+    want = reference.kminmers_rows(codes, lengths, 31, 5, 0.01, "regular", 32, xcodes=True)
+    got_hash = (out.hash_hi.to(torch.int64) << 32) | (out.hash_lo.to(torch.int64) & 0xFFFFFFFF)
+    n_all = out.n_kminmers.cpu().tolist()
+    for r, w in enumerate(want):
+        n = n_all[r]
+        assert n == len(w["hash"]) > 40, r
+        assert torch.equal(got_hash[r, :n], w["hash"]), r
+        assert torch.equal(out.start[r, :n].to(torch.int64), w["start"]), r
+        assert torch.equal(out.end[r, :n].to(torch.int64), w["end"]), r
+        assert torch.equal(out.rev[r, :n].to(torch.bool), w["rev"]), r
+    assert sum(n_all) > 1024 * 100
